@@ -1,0 +1,412 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout, on a machine with a CUDA card and nvcc.
+It imports nothing of JAX or of the JAX package.  Phases:
+
+1. the card (name and power limit from nvidia-smi) and the versions;
+2. build both CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc,
+   one process per source, started together;
+3. hold each kernel against its plain PyTorch version on the card on the
+   test sweeps and at llsc-100m's shapes (tolerance 2e-5 in float32, 2e-2
+   in bfloat16, as |a - b| <= atol + rtol * |b|), then time kernel, plain
+   version and the library call (device time from torch.profiler's kernel
+   records, with the CUDA-event time of a call beside it) against the
+   data-sheet bound;
+4. serve llsc-100m at full width and depth in bfloat16 with
+   ``flash_kernel`` on through ``ServeEngine``: 8 requests (prompts of 128
+   and 256 tokens, 32 new tokens each) through 4 slots; the kernels'
+   launch counters are set to 0 just before and must read exactly
+   flash = 12 x prefills and rmsnorm = 25 x (prefills + decode steps);
+5. float32 logits of the card against the CPU over a prefill and 8 greedy
+   decode steps at full width (tolerance 1e-4, the same tokens);
+6. the same serve as in 4 under ``torch.profiler``: device busy share (device
+   time over the span from the trace's first device activity to its last)
+   and the largest kernels;
+7. one ``{"kernels": [...]}`` line, the nvidia-smi line, and last the
+   ``{"ok": true, ...}`` line.
+
+Any failed check raises, and the script exits non-zero; without a CUDA
+device, or outside a checkout, it prints no result and exits 1.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import platform
+import subprocess
+import sys
+import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+ATOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+def check(cond, msg):
+    if not cond:
+        raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def nvidia_smi_line() -> str:
+    res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    return res.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, iters=200, warmup=20):
+    """Mean time of one call from CUDA events around ``iters`` back-to-back
+    calls after ``warmup``: the device time, or the host's launch cost
+    where the host cannot keep ahead of a short kernel."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_activities(prof):
+    """(name, microseconds, start us, end us) of every device activity
+    (kernel, copy, set) in a torch.profiler trace, leaving out the host
+    operators that launch them."""
+    from torch.autograd import DeviceType
+
+    return [(e.name, e.time_range.elapsed_us(), e.time_range.start,
+             e.time_range.end) for e in prof.events()
+            if e.device_type == DeviceType.CUDA]
+
+
+def device_ms(fn, iters=100, warmup=10):
+    """Mean device time of one call: the summed durations of the device
+    activities that ``iters`` calls launch, from a torch.profiler trace.
+    Returns (ms, device activities per call)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    acts = device_activities(prof)
+    check(acts, "the profiler recorded no device activity")
+    return sum(a[1] for a in acts) / iters / 1e3, len(acts) / iters
+
+
+def timed(label, fns):
+    """Device ms of each of kernel, plain and library call (the keys of
+    ``fns``), printed beside the event-timed cost of a call."""
+    out = {}
+    parts = []
+    for key, fn in fns.items():
+        ms, n = device_ms(fn)
+        out[key] = ms
+        parts.append(f"{key} {ms:.5f} ms device ({n:g} launches/call, "
+                     f"{cuda_ms(fn):.5f} ms a call by events)")
+    print(f"  timed {label}: " + "; ".join(parts))
+    return out
+
+
+def compare(name, got, want, dtype_name):
+    import torch
+
+    got, want = got.float(), want.float()
+    tol = ATOL[dtype_name]
+    err = (got - want).abs()
+    ok = bool(torch.all(err <= tol + tol * want.abs()))
+    check(torch.isfinite(got).all().item(), f"{name}: non-finite output")
+    m = float(err.max())
+    print(f"  {name}: max_abs_err {m:.3e} (atol=rtol={tol}) "
+          f"{'ok' if ok else 'FAIL'}")
+    check(ok, f"{name} disagrees with its plain version")
+    return m
+
+
+def phase_kernels(torch, fa, rn, ref, hw):
+    """Phase 3: kernels against plain versions, then timings."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(*shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    errs = {"flash_attention": {}, "rmsnorm": {}}
+    flash_cases = [  # B, H, Hk, S, D, causal: the test sweep, then llsc-100m
+        (1, 2, 1, 128, 64, True), (2, 4, 2, 128, 32, True),
+        (1, 4, 4, 256, 64, True), (2, 8, 2, 64, 128, True),
+        (1, 2, 2, 128, 32, False), (1, 12, 12, 128, 64, True),
+        (1, 12, 12, 256, 64, True), (2, 4, 2, 100, 64, True)]
+    rms_cases = [(32, 128), (33, 256), (7, 64), (4, 768), (256, 768)]
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        for B, H, Hk, S, D, causal in flash_cases:
+            q = randn(B, H, S, D, dtype=dtype)
+            k, v = randn(B, Hk, S, D, dtype=dtype), randn(B, Hk, S, D, dtype=dtype)
+            key = (dn, B, H, S, D, causal)
+            errs["flash_attention"][key] = compare(
+                f"flash {dn} B{B} H{H} Hk{Hk} S{S} D{D} causal={causal}",
+                fa.flash_attention(q, k, v, causal=causal),
+                ref.attention_ref(q, k, v, causal=causal), dn)
+        # the model's layout, with q, k, v as strided views of one buffer
+        qkv = randn(1, 256, 3, 12, 64, dtype=dtype)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        want = ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                 v.transpose(1, 2)).transpose(1, 2)
+        compare(f"flash_bshd {dn} B1 S256 H12 D64 seq-stride "
+                f"{q.stride(1)}", fa.flash_attention_bshd(q, k, v), want, dn)
+        for rows, d in rms_cases:
+            x = randn(rows, d, dtype=dtype)
+            s = (randn(d, dtype=torch.float32) * 0.1 + 1.0).to(dtype)
+            errs["rmsnorm"][(dn, rows, d)] = compare(
+                f"rmsnorm {dn} rows{rows} D{d}", rn.rmsnorm(x, s),
+                ref.rmsnorm_ref(x, s), dn)
+
+    # Timings at the main path's shapes, bf16: a 256-token prefill's
+    # attention, and a decode step's norm over 4 slots (2 in 3 norm launches
+    # of the serve are decode steps) beside a 256-token prefill's.
+    F = torch.nn.functional
+    rows = []
+    bf16 = torch.bfloat16
+    B, S, H, D = 1, 256, 12, 64
+    q, k, v = (randn(B, S, H, D, dtype=bf16) for _ in range(3))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    n_bytes = 4 * B * S * H * D * 2
+    flops = 4 * B * H * D * (S * (S + 1) // 2)    # unmasked (i, j <= i) pairs
+    bound, by = hw.bound_s(n_bytes, flops, bf16)
+    t = timed(f"flash bf16 B{B} S{S} H{H} D{D} causal (library: sdpa)", dict(
+        ms=lambda: fa.flash_attention_bshd(q, k, v),
+        plain_ms=lambda: ref.attention_ref(qt, kt, vt),
+        library_ms=lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                          is_causal=True)))
+    print(f"  bound {bound * 1e3:.6f} ms ({by}: {n_bytes} B, {flops} FLOP)")
+    rows.append(dict(name="flash_attention", route="cuda",
+                     source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                     replaces="src/repro/kernels/flash_attention.py:27",
+                     max_abs_err=errs["flash_attention"][
+                         ("bfloat16", 1, 12, 256, 64, True)],
+                     bound_ms=bound * 1e3, bound_by=by, **t))
+    for nrows in (256, 4):
+        x = randn(nrows, 768, dtype=bf16)
+        s = (randn(768, dtype=torch.float32) * 0.1 + 1.0).to(bf16)
+        n_bytes = 2 * nrows * 768 * 2 + 768 * 2
+        bound, by = hw.bound_s(n_bytes, 4 * nrows * 768, bf16)
+        t = timed(f"rmsnorm bf16 rows{nrows} D768 (library: F.rms_norm)", dict(
+            ms=lambda: rn.rmsnorm(x, s),
+            plain_ms=lambda: ref.rmsnorm_ref(x, s),
+            library_ms=lambda: F.rms_norm(x, (768,), s, 1e-5)))
+        print(f"  bound {bound * 1e3:.6f} ms ({by}: {n_bytes} B)")
+    rows.append(dict(name="rmsnorm", route="cuda",
+                     source="src/repro_torch/kernels/csrc/rmsnorm.cu",
+                     replaces="src/repro/kernels/rmsnorm.py:19",
+                     max_abs_err=errs["rmsnorm"][("bfloat16", 4, 768)],
+                     bound_ms=bound * 1e3, bound_by=by, **t))
+    return rows
+
+
+def make_requests(engine_mod, vocab, n, seed):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [engine_mod.Request(i, rng.integers(0, vocab, 128 * (1 + i % 2))
+                               .astype(np.int32), max_new_tokens=32)
+            for i in range(n)]
+
+
+def phase_serve(torch, cfg, params, engine, fa, rn, perf, profile=False):
+    """Phase 4 (and 6 with ``profile``): serve 8 requests through 4 slots."""
+    eng = engine.ServeEngine(cfg, params, engine.EngineConfig(
+        slots=4, max_seq_len=512, job_name="chip_smoke:llsc-100m"))
+    for r in make_requests(engine, cfg.vocab_size, 8, seed=1):
+        eng.submit(r)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = 0
+    rn.launches = 0
+    with perf.perf_flags(perf.PerfFlags(flash_kernel=True)):
+        if profile:
+            from torch.profiler import ProfilerActivity, profile as prof_ctx
+            with prof_ctx(activities=[ProfilerActivity.CPU,
+                                      ProfilerActivity.CUDA]) as prof:
+                stats = eng.run()
+                torch.cuda.synchronize()
+            return eng, stats, prof
+        stats = eng.run()
+    torch.cuda.synchronize()
+    counts = {"flash_attention": fa.launches, "rmsnorm": rn.launches}
+    return eng, stats, counts
+
+
+def main() -> int:
+    if not (SRC / "repro_torch").is_dir():
+        print("chip_smoke: run from the root of a checkout (src/repro_torch "
+              "is missing)", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(SRC))
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: needs a CUDA device", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.models import model as model_lib
+    from repro_torch.models import perf_flags as perf
+    from repro_torch.monitor import JobRegistry
+    from repro_torch.roofline import hw
+    from repro_torch.serve import engine
+
+    t_all = time.perf_counter()
+    print("=== 1. card and versions ===")
+    smi = nvidia_smi_line()
+    print(smi)
+    kind = torch.cuda.get_device_name(0)
+    print(f"python {platform.python_version()}, torch {torch.__version__}, "
+          f"CUDA {torch.version.cuda}; {kind}: "
+          f"{hw.device_memory_bytes(0) / 1e9:.2f} GB device memory; bounds "
+          f"use H100 SXM data-sheet peaks (bf16 {hw.PEAK_FLOPS_BF16 / 1e12:.0f}"
+          f" TFLOP/s, fp32 {hw.PEAK_FLOPS_FP32 / 1e12:.0f} TFLOP/s, HBM "
+          f"{hw.HBM_BW / 1e12:.2f} TB/s)")
+
+    print("=== 2. build (nvcc, one process per source) ===")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(_build.SOURCES)) as pool:
+        libs = dict(zip(_build.SOURCES, pool.map(_build.build,
+                                                 _build.SOURCES)))
+    print(f"built {sorted(libs)} in {time.perf_counter() - t0:.2f} s")
+    for name, path in sorted(libs.items()):
+        log = path.with_suffix(".log")
+        if log.exists():
+            for line in log.read_text().splitlines():
+                if "registers" in line or "spill" in line:
+                    print(f"  {name} ptxas: {line.strip()}")
+
+    print("=== 3. kernels against their plain versions on the card ===")
+    rows = phase_kernels(torch, fa, rn, ref, hw)
+
+    print("=== 4. serve llsc-100m, full width and depth, bf16, flash_kernel ===")
+    cfg = get_config("llsc-100m")
+    params = model_lib.init_params(cfg, torch.Generator().manual_seed(0),
+                                   device="cuda")
+    phase_serve(torch, cfg, params, engine, fa, rn, perf)     # warm-up
+    eng, stats, counts = phase_serve(torch, cfg, params, engine, fa, rn, perf)
+    n_pre, n_dec = len(eng.prefill_s), stats["steps"]
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    print(f"{stats['requests']} requests, {stats['tokens']} tokens in "
+          f"{stats['wall_s'] * 1e3:.1f} ms: {stats['tokens_per_s']:.1f} "
+          f"tokens/s")
+    print(f"prefill: {n_pre} x {np.mean(eng.prefill_s) * 1e3:.3f} ms mean "
+          f"(128/256-token prompts, first token included); decode: {n_dec} "
+          f"steps x {np.mean(eng.decode_s) * 1e3:.3f} ms mean, "
+          f"{np.median(eng.decode_s) * 1e3:.3f} ms median (4 slots)")
+    print(f"peak memory allocated: {peak_mb:.1f} MiB")
+    expect = {"flash_attention": cfg.n_layers * n_pre,
+              "rmsnorm": (2 * cfg.n_layers + 1) * (n_pre + n_dec)}
+    print(f"launches on the main path: {counts} (expected {expect})")
+    check(counts == expect, f"launch counts {counts} != {expect}")
+    check(stats["requests"] == 8, "not every request completed")
+    for c in eng.completions:
+        check(len(c.tokens) == 32 and all(0 <= t < cfg.vocab_size
+                                          for t in c.tokens),
+              f"request {c.request_id}: bad completion")
+    pub = JobRegistry.global_registry().entries()["chip_smoke:llsc-100m"]
+    d = stats["decision"]
+    print(f"LLload registry: duty {pub.duty_cycle:.6f} of the H100 bf16 "
+          f"peak, step {pub.step_time_s * 1e3:.3f} ms, device memory "
+          f"{pub.hbm_used_gb:.3f} / {pub.hbm_total_gb:.3f} GB; overload "
+          f"controller: slots 4 -> {d.nppn} ({d.reason})")
+    for row in rows:
+        row["launches"] = counts[row["name"]]
+    serve_wall = stats["wall_s"]
+
+    print("=== 5. card vs CPU, llsc-100m full width, float32 ===")
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    f32 = {}
+    for dev in ("cuda", "cpu"):
+        p = model_lib.init_params(cfg, torch.Generator().manual_seed(0),
+                                  device=dev, dtype=torch.float32)
+        tokens = torch.as_tensor(
+            np.random.default_rng(2).integers(0, cfg.vocab_size, (1, 128)),
+            device=dev)
+        logits_all = []
+        with perf.perf_flags(perf.PerfFlags(flash_kernel=True)):
+            logits, cache = model_lib.prefill(p, cfg32, tokens)
+            cache = {part: {key: {n: torch.nn.functional.pad(
+                t, (0, 0, 0, 0, 0, 8)) for n, t in e.items()}
+                for key, e in entries.items()}
+                for part, entries in cache.items()}
+            for step in range(9):
+                logits_all.append(logits.cpu())
+                if step == 8:
+                    break
+                tok = torch.argmax(logits, dim=-1)
+                logits, cache = model_lib.decode_step(p, cfg32, tok[:, None],
+                                                      cache, 128 + step)
+        f32[dev] = logits_all
+        del p, cache
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(f32["cuda"], f32["cpu"])):
+        err = float((a - b).abs().max())
+        same = bool(torch.equal(a.argmax(-1), b.argmax(-1)))
+        worst = max(worst, err)
+        print(f"  {'prefill' if i == 0 else f'decode {i}'}: max |card - cpu| "
+              f"{err:.3e}, same greedy token: {same}")
+        check(torch.isfinite(a).all().item(), "non-finite logits on the card")
+        check(same, "the card and the CPU chose different tokens")
+    check(worst <= 1e-4, f"card vs CPU logits differ by {worst:.3e} > 1e-4")
+    print(f"  worst {worst:.3e} (tol 1e-4)")
+
+    print("=== 6. the serve of phase 4 under torch.profiler ===")
+    eng_p, stats_p, prof = phase_serve(torch, cfg, params, engine, fa, rn,
+                                       perf, profile=True)
+    acts = device_activities(prof)
+    check(acts, "the traced serve recorded no device activity")
+    per_kernel = {}
+    for name, us, _, _ in acts:
+        per_kernel[name] = per_kernel.get(name, 0.0) + us
+    busy_ms = sum(per_kernel.values()) / 1e3
+    span_ms = (max(e for *_, e in acts) - min(s for *_, s, _ in acts)) / 1e3
+    print(f"device activity {busy_ms:.3f} ms over {stats_p['steps']} decode "
+          f"steps and {len(eng_p.prefill_s)} prefills, within {span_ms:.3f} "
+          f"ms from the first device activity to the last (both from this "
+          f"trace): {100 * busy_ms / span_ms:.2f}% busy, "
+          f"{100 - 100 * busy_ms / span_ms:.2f}% idle; traced wall "
+          f"{stats_p['wall_s'] * 1e3:.1f} ms against phase 4's untraced "
+          f"{serve_wall * 1e3:.1f} ms")
+    for key, us in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:10]:
+        print(f"  {us / 1e3:9.3f} ms  {key[:100]}")
+
+    print(f"=== 7. summary (whole run {time.perf_counter() - t_all:.1f} s) ===")
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in rows]}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

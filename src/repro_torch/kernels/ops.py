@@ -1,0 +1,34 @@
+"""Public kernel entry points (counterpart of ``repro.kernels.ops``).
+
+A CUDA tensor launches the hand-written kernel, or the wrapper raises;
+a CPU tensor takes the plain PyTorch version in :mod:`.ref`.  Nothing
+falls back from one to the other.
+"""
+from __future__ import annotations
+
+from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import ref
+from repro_torch.kernels import rmsnorm as _rn
+
+
+def flash_attention(q, k, v, *, causal: bool = True):
+    """q [B,H,S,D]; k,v [B,Hk,T,D] -> [B,H,S,D].  Forward only."""
+    if q.is_cuda:
+        return _fa.flash_attention(q, k, v, causal=causal)
+    return ref.attention_ref(q, k, v, causal=causal)
+
+
+def flash_attention_bshd(q, k, v, *, causal: bool = True):
+    """Model layout: q [B,S,H,D]; k,v [B,T,Hk,D] -> [B,S,H,D]."""
+    if q.is_cuda:
+        return _fa.flash_attention_bshd(q, k, v, causal=causal)
+    o = ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                          v.transpose(1, 2), causal=causal)
+    return o.transpose(1, 2)
+
+
+def rmsnorm(x, scale, eps: float = 1e-5):
+    """x [..., D]; scale [D]; fp32 statistics."""
+    if x.is_cuda:
+        return _rn.rmsnorm(x, scale, eps)
+    return ref.rmsnorm_ref(x, scale, eps)

@@ -1,0 +1,132 @@
+"""GQA attention (counterpart of the GQA part of ``repro.models.attention``).
+
+Prefill attention goes to the flash kernel when ``PerfFlags.flash_kernel``
+is set and the reference's gate holds; otherwise, and for decode, it is
+:func:`chunked_attention` in plain PyTorch, as the reference's is jnp.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.models.layers import apply_rope_bshd
+from repro_torch.models.perf_flags import current as _perf
+
+F32 = torch.float32
+NEG_INF = -1e30
+
+
+def _attend_block(qc, k, v, q_pos, kv_pos, *, causal, kv_valid_len, scale):
+    """qc [B,C,Hk,G,D]; k,v [B,T,Hk,D]; q_pos [C] or [B,C]; kv_pos [T];
+    kv_valid_len None or [B].  Returns [B,C,Hk,G,D]."""
+    scores = torch.einsum("bchgd,bthd->bhgct", qc.to(F32), k.to(F32)) * scale
+    if q_pos.dim() == 1:
+        q_pos = q_pos[None]                                  # [1, C]
+    mask = torch.ones((1, 1, kv_pos.shape[0]), dtype=torch.bool,
+                      device=qc.device)
+    if causal:
+        mask = mask & (kv_pos[None, None, :] <= q_pos[:, :, None])
+    if kv_valid_len is not None:
+        mask = mask & (kv_pos[None, None, :] < kv_valid_len[:, None, None])
+    scores = torch.where(mask[:, None, None], scores,
+                         torch.full_like(scores, NEG_INF))
+    weights = torch.softmax(scores, dim=-1).to(v.dtype)
+    return torch.einsum("bhgct,bthd->bchgd", weights, v)
+
+
+def chunked_attention(q, k, v, *, causal=True, q_offset=0, kv_valid_len=None,
+                      chunk=1024):
+    """q [B,Sq,H,D]; k,v [B,Skv,Hkv,D] -> [B,Sq,H,D].
+
+    Exact softmax per query chunk of ``chunk`` rows.  ``q_offset``: position
+    of q[0] in the kv sequence, an int or a per-row [B] tensor (decode:
+    cache_len).  ``kv_valid_len``: positions >= it are masked, an int or [B].
+    """
+    B, Sq, H, D = q.shape
+    Hk, Skv = k.shape[2], k.shape[1]
+    G = H // Hk
+    scale = D ** -0.5
+    dev = q.device
+    qg = q.reshape(B, Sq, Hk, G, D)
+    q_off = torch.as_tensor(q_offset, device=dev)
+    kvl = None
+    if kv_valid_len is not None:
+        kvl = torch.as_tensor(kv_valid_len, device=dev).reshape(-1)
+    kv_pos = torch.arange(Skv, device=dev)
+    outs = []
+    for start in range(0, Sq, chunk):
+        qc = qg[:, start:start + chunk]
+        ar = torch.arange(start, start + qc.shape[1], device=dev)
+        q_pos = q_off[:, None] + ar if q_off.dim() == 1 else q_off + ar
+        outs.append(_attend_block(qc, k, v, q_pos, kv_pos, causal=causal,
+                                  kv_valid_len=kvl, scale=scale))
+    return torch.cat(outs, dim=1).reshape(B, Sq, H, D)
+
+
+def gqa_project_qkv(params, x, n_heads, n_kv_heads, d_head):
+    B, S, _ = x.shape
+    q = x @ params["wq"]
+    k = x @ params["wk"]
+    v = x @ params["wv"]
+    return (q.reshape(B, S, n_heads, d_head),
+            k.reshape(B, S, n_kv_heads, d_head),
+            v.reshape(B, S, n_kv_heads, d_head))
+
+
+def _flash_applicable(S: int) -> bool:
+    """The reference's gate (attention.py:200-206) for a global, uncapped
+    layer: the flag is set and ``S`` is a multiple of ``min(128, S)``."""
+    if not _perf().flash_kernel:
+        return False
+    block = min(128, S)
+    return S % block == 0
+
+
+def gqa_attention(params, x, cfg, *, positions):
+    """Full-sequence (prefill) causal GQA attention.  x [B,S,D] ->
+    ([B,S,D], (k, v))."""
+    q, k, v = gqa_project_qkv(params, x, cfg.n_heads, cfg.n_kv_heads,
+                              cfg.d_head)
+    q = apply_rope_bshd(q, positions, cfg.rope_theta)
+    k = apply_rope_bshd(k, positions, cfg.rope_theta)
+    B, S = q.shape[:2]
+    if _flash_applicable(S):
+        out = ops.flash_attention_bshd(q, k, v, causal=True)
+    else:
+        out = chunked_attention(q, k, v, causal=True, chunk=cfg.attn_chunk)
+    return out.reshape(B, S, -1) @ params["wo"], (k, v)
+
+
+def _cache_write(cache, new, cache_len):
+    """Write new [B,1,...] at time position cache_len (an int or a per-row
+    [B] tensor) of cache [B,T,...], in place: the cache is the engine's
+    preallocated buffer, so nothing is copied.  Returns cache."""
+    if isinstance(cache_len, int):
+        cache[:, cache_len:cache_len + new.shape[1]] = new.to(cache.dtype)
+    else:
+        rows = torch.arange(cache.shape[0], device=cache.device)
+        cache[rows, cache_len] = new[:, 0].to(cache.dtype)
+    return cache
+
+
+def _decode_positions(cache_len, device):
+    if isinstance(cache_len, int):
+        return torch.full((1,), cache_len, dtype=torch.int32, device=device)
+    return cache_len[:, None].to(torch.int32)                  # [B,1]
+
+
+def gqa_decode(params, x, cfg, cache_k, cache_v, cache_len):
+    """Single-token decode. x [B,1,D]; cache_[kv] [B,T,Hk,D], written in
+    place at ``cache_len`` (an int, or a per-row [B] tensor for slots of
+    ragged length).  Returns (out, cache_k, cache_v)."""
+    q, k, v = gqa_project_qkv(params, x, cfg.n_heads, cfg.n_kv_heads,
+                              cfg.d_head)
+    pos = _decode_positions(cache_len, x.device)
+    q = apply_rope_bshd(q, pos, cfg.rope_theta)
+    k = apply_rope_bshd(k, pos, cfg.rope_theta)
+    cache_k = _cache_write(cache_k, k, cache_len)
+    cache_v = _cache_write(cache_v, v, cache_len)
+    out = chunked_attention(q, cache_k, cache_v, causal=True,
+                            q_offset=cache_len, kv_valid_len=cache_len + 1)
+    B = x.shape[0]
+    return out.reshape(B, 1, -1) @ params["wo"], cache_k, cache_v

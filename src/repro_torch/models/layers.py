@@ -1,0 +1,60 @@
+"""Shared layer primitives (counterpart of ``repro.models.layers``):
+RMSNorm, half-split RoPE, the SwiGLU MLP and the embedding.
+
+Functions take ``(params, x, ...)`` with ``params`` a dict of tensors.
+Compute dtype follows the input; statistics accumulate in float32.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+
+F32 = torch.float32
+
+
+def rmsnorm(params, x, eps: float = 1e-5):
+    """fp32 statistics, the scale applied in fp32 before the cast back —
+    the reference's ``layers.rmsnorm`` — through the RMSNorm kernel."""
+    return ops.rmsnorm(x, params["scale"], eps)
+
+
+def rope_sincos(positions, dim: int, theta: float):
+    """positions [...] int -> (sin, cos) each [..., dim/2] float32."""
+    if dim % 2:
+        raise ValueError(f"RoPE needs an even dim, got {dim}")
+    inv_freq = 1.0 / (theta ** (np.arange(0, dim, 2, dtype=np.float32) / dim))
+    inv = torch.from_numpy(inv_freq).to(positions.device)
+    angles = positions.to(F32)[..., None] * inv
+    return torch.sin(angles), torch.cos(angles)
+
+
+def apply_rope_bshd(x, positions, theta: float):
+    """RoPE on x [B,S,H,D] at positions [S] or [B,S]; half-split: the first
+    and second halves of the head dim form the rotated pairs."""
+    sin, cos = rope_sincos(positions, x.shape[-1], theta)
+    d2 = x.shape[-1] // 2
+    x1, x2 = x[..., :d2].to(F32), x[..., d2:].to(F32)
+    if sin.dim() == 2:       # positions [S]
+        sin, cos = sin[None, :, None, :], cos[None, :, None, :]
+    else:                    # positions [B, S]
+        sin, cos = sin[:, :, None, :], cos[:, :, None, :]
+    y1 = x1 * cos - x2 * sin
+    y2 = x2 * cos + x1 * sin
+    return torch.cat([y1, y2], dim=-1).to(x.dtype)
+
+
+def mlp(params, x, act: str):
+    if act != "swiglu":
+        raise NotImplementedError(f"the port's MLP supports swiglu, not {act}")
+    h = F.silu(x @ params["w1"]) * (x @ params["w3"])
+    return h @ params["w2"]
+
+
+def embed(table, tokens, scale: float = 1.0):
+    x = table[tokens]
+    if scale != 1.0:
+        x = (x.to(F32) * scale).to(x.dtype)
+    return x

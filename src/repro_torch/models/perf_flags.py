@@ -1,0 +1,56 @@
+"""Perf-iteration toggles (copy of ``repro.models.perf_flags``).
+
+The field set is the reference's, so ``PerfFlags.parse`` accepts the same
+names; the port acts on ``flash_kernel`` only, which routes prefill
+attention through the CUDA flash kernel.  Defaults are all off, as in the
+reference.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import threading
+
+_state = threading.local()
+
+
+@dataclasses.dataclass(frozen=True)
+class PerfFlags:
+    loss_weight_gather: bool = False
+    banded_local: bool = False
+    decode_cache_seq_shard: bool = False
+    moe_fsdp_tp: bool = False
+    moe_a2a: bool = False
+    sequence_parallel: bool = False
+    bf16_grads: bool = False
+    # Route global causal prefill attention through the flash kernel
+    # (kernels/csrc/flash_attention.cu on a CUDA tensor).
+    flash_kernel: bool = False
+    remat_dots: bool = False
+
+    @classmethod
+    def parse(cls, csv: str) -> "PerfFlags":
+        names = [s.strip() for s in csv.split(",") if s.strip()]
+        known = {f.name for f in dataclasses.fields(cls)}
+        bad = set(names) - known
+        if bad:
+            raise ValueError(f"unknown perf flags {bad}; known: {known}")
+        return cls(**{n: True for n in names})
+
+    def active(self) -> list:
+        return [f.name for f in dataclasses.fields(self)
+                if getattr(self, f.name)]
+
+
+def current() -> PerfFlags:
+    return getattr(_state, "flags", None) or PerfFlags()
+
+
+@contextlib.contextmanager
+def perf_flags(flags: PerfFlags):
+    prev = getattr(_state, "flags", None)
+    _state.flags = flags
+    try:
+        yield
+    finally:
+        _state.flags = prev

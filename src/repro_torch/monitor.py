@@ -1,0 +1,94 @@
+"""Job-side LLload publishing (the port's copy of the job registry of
+``repro.core.collector`` and of ``repro.monitor.bus.publish_step_utilization``).
+
+A serving or training job publishes each timed step's achieved utilization
+into an in-process registry, keyed by job name; LLload's collectors read
+the registry instead of probing the device.  The port keeps its own copy so
+that it imports nothing of ``repro``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import threading
+from typing import Dict
+
+
+@dataclasses.dataclass
+class DeviceUtilization:
+    """What a job knows about its own devices."""
+    n_devices: int = 0
+    n_active: int = 0
+    duty_cycle: float = 0.0     # achieved FLOP/s / peak FLOP/s (MFU proxy)
+    hbm_total_gb: float = 0.0
+    hbm_used_gb: float = 0.0
+    step_time_s: float = 0.0
+    achieved_flops: float = 0.0
+
+
+class JobRegistry:
+    """In-process registry jobs publish to (``JaxJobRegistry`` in the
+    reference); thread-safe, keyed by job name."""
+
+    _global = None
+    _global_lock = threading.Lock()
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._entries: Dict[str, DeviceUtilization] = {}  # guarded-by: _lock
+
+    @classmethod
+    def global_registry(cls) -> "JobRegistry":
+        with cls._global_lock:
+            if cls._global is None:
+                cls._global = cls()
+            return cls._global
+
+    def publish(self, job_name: str, util: DeviceUtilization):
+        with self._lock:
+            self._entries[job_name] = util
+
+    def remove(self, job_name: str):
+        with self._lock:
+            self._entries.pop(job_name, None)
+
+    def entries(self) -> Dict[str, DeviceUtilization]:
+        with self._lock:
+            return dict(self._entries)
+
+    def aggregate(self) -> DeviceUtilization:
+        """Combine all co-resident jobs into one per-device view: duty
+        cycles add per device (jobs in one process share the devices),
+        capped at the number of jobs."""
+        with self._lock:
+            entries = list(self._entries.values())
+        if not entries:
+            return DeviceUtilization()
+        n = max(e.n_devices for e in entries)
+        weighted = sum(e.duty_cycle * max(e.n_devices, 1)
+                       for e in entries) / max(n, 1)
+        return DeviceUtilization(
+            n_devices=n,
+            n_active=max(e.n_active for e in entries),
+            duty_cycle=min(float(len(entries)), weighted),
+            hbm_total_gb=max(e.hbm_total_gb for e in entries),
+            hbm_used_gb=sum(e.hbm_used_gb for e in entries),
+            step_time_s=max(e.step_time_s for e in entries),
+            achieved_flops=sum(e.achieved_flops for e in entries),
+        )
+
+
+def publish_step_utilization(job_name: str, *, model_flops_per_step: float,
+                             step_time_s: float, peak_flops: float,
+                             n_devices: int = 1, hbm_used_gb: float = 0.0,
+                             hbm_total_gb: float = 0.0, registry=None):
+    """Publish one timed step's achieved utilization into ``registry``
+    (default: the process-wide registry)."""
+    duty = 0.0
+    if step_time_s > 0 and peak_flops > 0:
+        duty = model_flops_per_step / step_time_s / (peak_flops * n_devices)
+    reg = registry or JobRegistry.global_registry()
+    reg.publish(job_name, DeviceUtilization(
+        n_devices=n_devices, n_active=n_devices, duty_cycle=duty,
+        hbm_total_gb=hbm_total_gb, hbm_used_gb=hbm_used_gb,
+        step_time_s=step_time_s,
+        achieved_flops=model_flops_per_step / max(step_time_s, 1e-9)))

@@ -55,3 +55,8 @@ except ModuleNotFoundError:
     _hyp.HealthCheck = types.SimpleNamespace(all=lambda: [])
     sys.modules["hypothesis"] = _hyp
     sys.modules["hypothesis.strategies"] = _st
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips where CUDA is absent")

@@ -1,0 +1,82 @@
+"""The port's copies of configs, perf flags and the overload controller
+equal the JAX package's originals."""
+import dataclasses
+
+import pytest
+
+pytest.importorskip("torch")
+
+from repro.configs import get_config as jax_get_config  # noqa: E402
+from repro.configs import reduced_config as jax_reduced  # noqa: E402
+from repro.core import overload as jax_overload  # noqa: E402
+from repro.insights.rules import recommend_nppn as jax_recommend  # noqa: E402
+from repro.models import model as jax_model  # noqa: E402
+from repro.models.perf_flags import PerfFlags as JaxPerfFlags  # noqa: E402
+from repro_torch.configs import get_config, list_archs, reduced_config  # noqa: E402
+from repro_torch.core import overload  # noqa: E402
+from repro_torch.models import model as model_lib  # noqa: E402
+from repro_torch.models.perf_flags import PerfFlags  # noqa: E402
+
+
+def test_registered_archs():
+    assert list_archs() == ["llsc-100m"]
+
+
+@pytest.mark.parametrize("reduced", [False, True])
+def test_llsc_config_equals_reference(reduced):
+    mine, ref = get_config("llsc-100m"), jax_get_config("llsc-100m")
+    if reduced:
+        mine, ref = reduced_config(mine), jax_reduced(ref)
+    assert dataclasses.asdict(mine) == dataclasses.asdict(ref)
+
+
+@pytest.mark.parametrize("reduced", [False, True])
+def test_param_count_equals_reference(reduced):
+    cfg, ref = get_config("llsc-100m"), jax_get_config("llsc-100m")
+    if reduced:
+        cfg, ref = reduced_config(cfg), jax_reduced(ref)
+    assert model_lib.count_params(cfg) == jax_model.count_params(ref)
+    assert model_lib.model_flops(cfg, 7, training=False) == \
+        jax_model.model_flops(ref, 7, training=False)
+
+
+def test_unsupported_features_raise():
+    cfg = dataclasses.replace(get_config("llsc-100m"), qkv_bias=True)
+    with pytest.raises(NotImplementedError, match="qkv_bias"):
+        model_lib.count_params(cfg)
+
+
+def test_perf_flags_copy():
+    assert [f.name for f in dataclasses.fields(PerfFlags)] == \
+        [f.name for f in dataclasses.fields(JaxPerfFlags)]
+    assert PerfFlags().active() == [] and not PerfFlags().flash_kernel
+    assert PerfFlags.parse("flash_kernel").active() == ["flash_kernel"]
+    with pytest.raises(ValueError):
+        PerfFlags.parse("flash_kernel,nope")
+
+
+@pytest.mark.parametrize("nppn", [-1, 0, 1, 2, 3, 5, 8, 16])
+def test_nearest_level_copy(nppn):
+    assert overload.nearest_level(nppn) == jax_overload.nearest_level(nppn)
+    assert overload.nearest_level(nppn, max_nppn=4) == \
+        jax_overload.nearest_level(nppn, max_nppn=4)
+
+
+@pytest.mark.parametrize("load,used,total", [
+    (0.0, 1.0, 80.0), (0.05, 0.5, 80.0), (0.2, 10.0, 80.0),
+    (0.5, 50.0, 80.0), (0.9, 1.0, 80.0), (0.01, 30.0, 80.0)])
+def test_recommend_nppn_copy(load, used, total):
+    assert overload.recommend_nppn(load, used, total) == \
+        jax_recommend(load, used, total)
+
+
+@pytest.mark.parametrize("duties,nppn", [
+    ([0.05] * 4, 1), ([0.05] * 4, 4), ([0.3, 0.4], 2), ([0.99] * 8, 4),
+    ([0.99] * 8, 3), ([0.7] * 3, 8), ([], 2)])
+def test_overload_controller_copy(duties, nppn):
+    mine, ref = overload.OverloadController(), jax_overload.OverloadController()
+    for d in duties:
+        mine.observe(overload.DeviceObservation(d, 2.0, 80.0))
+        ref.observe(jax_overload.DeviceObservation(d, 2.0, 80.0))
+    a, b = mine.decide(nppn), ref.decide(nppn)
+    assert (a.nppn, a.reason) == (b.nppn, b.reason)

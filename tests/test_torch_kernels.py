@@ -1,0 +1,198 @@
+"""The port's kernel layer on the CPU: the plain versions against the JAX
+package's Pallas kernels (interpret mode) and oracles, the CPU routing of
+``kernels.ops``, the wrappers' refusals, and the nvcc build recipe.
+
+Tolerances are the reference's own (tests/test_kernels.py): 2e-5 in
+float32, 2e-2 in bfloat16.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ops as jax_ops  # noqa: E402
+from repro.kernels import ref as jax_ref  # noqa: E402
+from repro.kernels.flash_attention import flash_attention as jax_flash  # noqa: E402
+from repro.kernels.rmsnorm import rmsnorm as jax_rmsnorm  # noqa: E402
+from repro.models import layers as jax_layers  # noqa: E402
+from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import rmsnorm as rn  # noqa: E402
+from repro_torch.models import layers  # noqa: E402
+
+DTYPES = {"float32": (torch.float32, jnp.float32),
+          "bfloat16": (torch.bfloat16, jnp.bfloat16)}
+
+
+def _tol(name):
+    return dict(rtol=2e-2, atol=2e-2) if name == "bfloat16" \
+        else dict(rtol=2e-5, atol=2e-5)
+
+
+def _pair(rng, shape, name, scale=1.0, shift=0.0):
+    """The same values as a torch and a jax array in dtype ``name``."""
+    a = (rng.standard_normal(shape, dtype=np.float32) * scale + shift)
+    tdt, jdt = DTYPES[name]
+    return torch.from_numpy(a).to(tdt), jnp.asarray(a).astype(jdt)
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.float32).numpy()
+    return np.asarray(x.astype(jnp.float32))
+
+
+# The sweep of tests/test_kernels.py, then llsc-100m's prefill shapes.
+FLASH_CASES = [
+    (1, 2, 1, 128, 64, 64, 64, True),
+    (2, 4, 2, 128, 32, 32, 64, True),
+    (1, 4, 4, 256, 64, 128, 128, True),
+    (2, 8, 2, 64, 128, 64, 64, True),
+    (1, 2, 2, 128, 32, 64, 64, False),
+    (1, 12, 12, 128, 64, 128, 128, True),
+    (1, 12, 12, 256, 64, 128, 128, True),
+]
+
+
+@pytest.mark.parametrize("name", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,Hk,S,D,bq,bk,causal", FLASH_CASES)
+def test_attention_plain_matches_pallas_kernel(B, H, Hk, S, D, bq, bk, causal,
+                                               name):
+    rng = np.random.default_rng(S + D + H)
+    tq, jq = _pair(rng, (B, H, S, D), name)
+    tk, jk = _pair(rng, (B, Hk, S, D), name)
+    tv, jv = _pair(rng, (B, Hk, S, D), name)
+    mine = ops.flash_attention(tq, tk, tv, causal=causal)
+    kern = jax_flash(jq, jk, jv, causal=causal, block_q=bq, block_k=bk,
+                     interpret=True)
+    oracle = jax_ref.attention_ref(jq, jk, jv, causal=causal)
+    assert mine.dtype == DTYPES[name][0] and mine.shape == (B, H, S, D)
+    np.testing.assert_allclose(_np(mine), _np(kern), **_tol(name))
+    np.testing.assert_allclose(_np(mine), _np(oracle), **_tol(name))
+
+
+@pytest.mark.parametrize("name", ["float32", "bfloat16"])
+def test_attention_bshd_matches_jax_adapter(name):
+    rng = np.random.default_rng(7)
+    tq, jq = _pair(rng, (2, 128, 4, 32), name)
+    tk, jk = _pair(rng, (2, 128, 2, 32), name)
+    tv, jv = _pair(rng, (2, 128, 2, 32), name)
+    mine = ops.flash_attention_bshd(tq, tk, tv, causal=True)
+    theirs = jax_ops.flash_attention_bshd(jq, jk, jv, causal=True,
+                                          block_q=64, block_k=64)
+    np.testing.assert_allclose(_np(mine), _np(theirs), **_tol(name))
+
+
+# The sweep of tests/test_kernels.py, then a decode step's and a prefill's
+# rows of llsc-100m.
+RMS_CASES = [(32, 128), (33, 256), (7, 64), (4, 768), (256, 768)]
+
+
+@pytest.mark.parametrize("name", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows,d", RMS_CASES)
+def test_rmsnorm_plain_matches_pallas_kernel(rows, d, name):
+    rng = np.random.default_rng(rows * d)
+    tx, jx = _pair(rng, (rows, d), name)
+    ts, js = _pair(rng, (d,), name, scale=0.1, shift=1.0)
+    mine = ops.rmsnorm(tx, ts)
+    kern = jax_rmsnorm(jx, js, interpret=True)
+    oracle = jax_ref.rmsnorm_ref(jx, js)
+    assert mine.dtype == DTYPES[name][0]
+    np.testing.assert_allclose(_np(mine), _np(kern), **_tol(name))
+    np.testing.assert_allclose(_np(mine), _np(oracle), **_tol(name))
+
+
+@pytest.mark.parametrize("name", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(2, 5, 64), (4, 1, 768)])
+def test_layers_rmsnorm_matches_jax_layers(shape, name):
+    rng = np.random.default_rng(3)
+    tx, jx = _pair(rng, shape, name, scale=3.0)
+    ts, js = _pair(rng, shape[-1:], name, scale=0.1, shift=1.0)
+    mine = layers.rmsnorm({"scale": ts}, tx, 1e-5)
+    theirs = jax_layers.rmsnorm({"scale": js}, jx, 1e-5)
+    np.testing.assert_allclose(_np(mine), _np(theirs), **_tol(name))
+
+
+@pytest.mark.parametrize("positions", ["shared", "per_row"])
+def test_rope_matches_jax(positions):
+    rng = np.random.default_rng(5)
+    tx, jx = _pair(rng, (2, 6, 4, 16), "float32")
+    if positions == "shared":
+        pos = np.arange(6)
+    else:
+        pos = np.stack([np.arange(6) + 3, np.arange(6) + 40])
+    mine = layers.apply_rope_bshd(tx, torch.from_numpy(pos), 10_000.0)
+    theirs = jax_layers.apply_rope_bshd(jx, jnp.asarray(pos), 10_000.0)
+    np.testing.assert_allclose(_np(mine), _np(theirs), rtol=2e-5, atol=2e-5)
+
+
+def test_cpu_tensors_take_the_plain_route_and_launch_nothing(monkeypatch):
+    def no_build(*_a, **_k):
+        raise AssertionError("a CPU tensor must not build or launch a kernel")
+
+    monkeypatch.setattr(_build, "build", no_build)
+    monkeypatch.setattr(_build, "load", no_build)
+    before = (fa.launches, rn.launches)
+    q = torch.randn(1, 2, 64, 32)
+    ops.flash_attention(q, q, q)
+    ops.flash_attention_bshd(q, q, q)
+    ops.rmsnorm(q, torch.ones(32))
+    assert (fa.launches, rn.launches) == before
+
+
+def test_wrappers_refuse_cpu_tensors():
+    q = torch.randn(1, 2, 64, 32)
+    with pytest.raises(ValueError, match="not a CUDA tensor"):
+        fa.flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="not a CUDA tensor"):
+        fa.flash_attention_bshd(q, q, q)
+    with pytest.raises(ValueError, match="not a CUDA tensor"):
+        rn.rmsnorm(q, torch.ones(32))
+
+
+def test_build_recipe(monkeypatch, tmp_path):
+    nvcc = str(tmp_path / "bin" / "nvcc")
+    cmd = _build.nvcc_command("rmsnorm", nvcc, tmp_path / "lib.so")
+    assert cmd[0] == nvcc and cmd[-1].endswith("csrc/rmsnorm.cu")
+    assert "arch=compute_90a,code=sm_90a" in cmd and "-shared" in cmd
+    paths = {n: _build.library_path(n, nvcc) for n in _build.SOURCES}
+    assert len(set(paths.values())) == len(_build.SOURCES)
+    for n, p in paths.items():
+        assert p.parent == _build.BUILD_DIR and p.name.startswith(f"lib{n}-")
+        assert (_build.CSRC / f"{n}.cu").exists()
+    assert _build.library_path("rmsnorm", nvcc) == paths["rmsnorm"]
+    other = str(tmp_path / "other" / "nvcc")
+    assert _build.library_path("rmsnorm", other) != paths["rmsnorm"]
+
+
+def test_build_raises_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(_build.os, "access", lambda *_a: False)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build("rmsnorm")
+
+
+def test_build_raises_when_nvcc_fails(monkeypatch, tmp_path):
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text("#!/bin/sh\necho 'error: no sm_90a here' >&2\nexit 2\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(_build, "find_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "kernels")
+    with pytest.raises(RuntimeError, match="nvcc failed for rmsnorm"):
+        _build.build("rmsnorm")
+    out = _build.library_path("rmsnorm", str(nvcc))
+    assert not out.exists()
+    assert "no sm_90a here" in out.with_suffix(".log").read_text()
+
+
+def test_plain_attention_masks_like_the_reference():
+    """Causal rows see only keys at or before their position."""
+    q = torch.zeros(1, 1, 4, 32)
+    v = torch.arange(4, dtype=torch.float32)[None, None, :, None].expand(
+        1, 1, 4, 32)
+    out = ref.attention_ref(q, q, v, causal=True)
+    # uniform weights over keys 0..i -> mean of 0..i
+    assert torch.allclose(out[0, 0, :, 0], torch.tensor([0.0, 0.5, 1.0, 1.5]))

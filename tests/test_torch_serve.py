@@ -1,0 +1,119 @@
+"""The port's ServeEngine against the JAX package's on reduced llsc-100m,
+fp32, greedy, with the same bridged weights: 6 requests of ragged prompt
+and output lengths through 2 slots give identical completions, token for
+token, and the engine publishes to the port's LLload registry."""
+import jax
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.configs import reduced_config as jax_reduced  # noqa: E402
+from repro.models import init_params as jax_init  # noqa: E402
+from repro.serve import engine as jax_engine  # noqa: E402
+from repro_torch.bridge import from_jax_params  # noqa: E402
+from repro_torch.configs import reduced_config  # noqa: E402
+from repro_torch.models.perf_flags import PerfFlags, perf_flags  # noqa: E402
+from repro_torch.monitor import JobRegistry  # noqa: E402
+from repro_torch.serve import engine  # noqa: E402
+
+CPU_FIGURES = dict(peak_flops=1e12, mem_total_gb=16.0)
+
+
+def _requests(mod, vocab):
+    rng = np.random.default_rng(11)
+    return [mod.Request(i, rng.integers(0, vocab, 8 + 4 * (i % 2))
+                        .astype(np.int32), max_new_tokens=4 + i % 3)
+            for i in range(6)]
+
+
+@pytest.fixture(scope="module")
+def weights():
+    jcfg = jax_reduced("llsc-100m")
+    cfg = reduced_config("llsc-100m")
+    jparams = jax_init(jcfg, jax.random.PRNGKey(0))
+    params = from_jax_params(jax.tree.map(np.asarray, jparams), cfg, "cpu")
+    return jcfg, cfg, jparams, params
+
+
+@pytest.fixture(scope="module")
+def jax_completions(weights):
+    jcfg, _, jparams, _ = weights
+    eng = jax_engine.ServeEngine(jcfg, jparams, jax_engine.EngineConfig(
+        slots=2, max_seq_len=64, monitor=False))
+    for r in _requests(jax_engine, jcfg.vocab_size):
+        eng.submit(r)
+    eng.run()
+    return {c.request_id: c.tokens for c in eng.completions}
+
+
+@pytest.mark.parametrize("flash", [False, True])
+def test_completions_identical_to_jax(weights, jax_completions, flash):
+    _, cfg, _, params = weights
+    job = f"serve-parity-{flash}"
+    eng = engine.ServeEngine(cfg, params, engine.EngineConfig(
+        slots=2, max_seq_len=64, job_name=job, device="cpu", **CPU_FIGURES))
+    for r in _requests(engine, cfg.vocab_size):
+        eng.submit(r)
+    with perf_flags(PerfFlags(flash_kernel=flash)):
+        stats = eng.run()
+    mine = {c.request_id: c.tokens for c in eng.completions}
+    assert mine == jax_completions
+    assert stats["requests"] == 6
+    assert stats["tokens"] == sum(len(t) for t in mine.values())
+    assert len(eng.prefill_s) == 6 and len(eng.decode_s) == stats["steps"]
+
+    pub = JobRegistry.global_registry().entries()[job]
+    assert pub.n_devices == 1 and pub.step_time_s > 0
+    assert pub.hbm_total_gb == 16.0 and pub.hbm_used_gb > 0
+    assert 0 < pub.duty_cycle
+    assert len(eng.controller.history) == stats["steps"]
+    assert stats["decision"].nppn in (1, 2, 4, 8)
+    JobRegistry.global_registry().remove(job)
+
+
+def test_slots_that_fill_their_cache_match_jax(weights):
+    """A request that runs its slot's cache full retires while the other
+    slot goes on decoding; the retired slot's row must not be written past
+    the end (JAX clamps the write)."""
+    jcfg, cfg, jparams, params = weights
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (10, 4)]
+    news = (30, 12)
+
+    jeng = jax_engine.ServeEngine(jcfg, jparams, jax_engine.EngineConfig(
+        slots=2, max_seq_len=16, monitor=False))
+    eng = engine.ServeEngine(cfg, params, engine.EngineConfig(
+        slots=2, max_seq_len=16, device="cpu", monitor=False))
+    for i, (p, n) in enumerate(zip(prompts, news)):
+        jeng.submit(jax_engine.Request(i, p, max_new_tokens=n))
+        eng.submit(engine.Request(i, p, max_new_tokens=n))
+    jeng.run()
+    eng.run()
+    theirs = {c.request_id: c.tokens for c in jeng.completions}
+    mine = {c.request_id: c.tokens for c in eng.completions}
+    assert mine == theirs
+    assert len(mine[0]) == 16 - 10 + 1      # stopped by the full cache
+
+
+def test_cpu_engine_needs_device_figures(weights):
+    _, cfg, _, params = weights
+    with pytest.raises(ValueError, match="peak_flops"):
+        engine.ServeEngine(cfg, params, engine.EngineConfig(device="cpu"))
+    engine.ServeEngine(cfg, params, engine.EngineConfig(device="cpu",
+                                                        monitor=False))
+
+
+def test_registry_aggregates_jobs():
+    reg = JobRegistry()
+    from repro_torch.monitor import publish_step_utilization
+    publish_step_utilization("a", model_flops_per_step=1e9, step_time_s=0.01,
+                             peak_flops=1e12, registry=reg)
+    publish_step_utilization("b", model_flops_per_step=2e9, step_time_s=0.01,
+                             peak_flops=1e12, registry=reg)
+    agg = reg.aggregate()
+    assert agg.duty_cycle == pytest.approx(0.3)
+    assert agg.achieved_flops == pytest.approx(3e11)
+    reg.remove("a")
+    assert set(reg.entries()) == {"b"}
