@@ -7,26 +7,41 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc.
 It imports nothing of JAX or of the JAX package.  Phases:
 
 1. the card (name and power limit from nvidia-smi) and the versions;
-2. build both CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc,
-   one process per source, started together;
-3. hold each kernel against its plain PyTorch version on the card on the
-   test sweeps and at llsc-100m's shapes (tolerance 2e-5 in float32, 2e-2
-   in bfloat16, as |a - b| <= atol + rtol * |b|), then time kernel, plain
-   version and the library call (device time from torch.profiler's kernel
+2. build the three CUDA sources from ``src/repro_torch/kernels/csrc`` with
+   nvcc (flash attention; RMSNorm and gated RMSNorm; SSD intra-chunk), one
+   process per source, started together;
+3. hold each of the four kernels against its plain PyTorch version on the
+   card on the test sweeps and at the main paths' shapes (tolerance 2e-5 in
+   float32 and 2e-2 in bfloat16 for attention and the norms, 2e-4 for the
+   SSD block, computed in float32 from either input dtype, as
+   |a - b| <= atol + rtol * |b|), then time kernel, plain version and the
+   library call where one exists (device time from torch.profiler's kernel
    records, with the CUDA-event time of a call beside it) against the
    data-sheet bound;
 4. serve llsc-100m at full width and depth in bfloat16 with
    ``flash_kernel`` on through ``ServeEngine``: 8 requests (prompts of 128
    and 256 tokens, 32 new tokens each) through 4 slots; the kernels'
    launch counters are set to 0 just before and must read exactly
-   flash = 12 x prefills and rmsnorm = 25 x (prefills + decode steps);
+   flash = 12 x prefills, rmsnorm = 25 x (prefills + decode steps) and
+   no gated norm or SSD launch;
 5. float32 logits of the card against the CPU over a prefill and 8 greedy
-   decode steps at full width (tolerance 1e-4, the same tokens);
-6. the same serve as in 4 under ``torch.profiler``: device busy share (device
-   time over the span from the trace's first device activity to its last)
-   and the largest kernels;
-7. one ``{"kernels": [...]}`` line, the nvidia-smi line, and last the
-   ``{"ok": true, ...}`` line.
+   decode steps of llsc-100m at full width (tolerance 1e-4, the same
+   tokens);
+6. the serve of 4 under ``torch.profiler``: device busy share (device time
+   over the span from the trace's first device activity to its last) and
+   the largest kernels;
+7. serve mamba2-370m at full width and depth in bfloat16: 8 requests
+   (prompts of 128 and 320 tokens: one padded chunk of 256, and two; 32 new
+   tokens each) through 4 slots, ``max_seq_len`` 384; the counters read
+   exactly rmsnorm = 49 x (prefills + decode steps), gated = 48 x
+   (prefills + decode steps), ssd = 48 x prefills and flash = 0;
+8. float32 logits of the card against the CPU over a 320-token prefill
+   and 8 greedy decode steps of mamba2-370m at full width (tolerance 1e-4,
+   the same tokens);
+9. the serve of 7 under ``torch.profiler``, as 6;
+10. one ``{"kernels": [...]}`` line (launches of flash and rmsnorm from 4,
+    of the gated norm and SSD from 7), the nvidia-smi line, and last the
+    ``{"ok": true, ...}`` line.
 
 Any failed check raises, and the script exits non-zero; without a CUDA
 device, or outside a checkout, it prints no result and exits 1.
@@ -46,6 +61,7 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 ATOL = {"float32": 2e-5, "bfloat16": 2e-2}
+SSD_TOL = 2e-4
 
 
 def check(cond, msg):
@@ -112,8 +128,9 @@ def device_ms(fn, iters=100, warmup=10):
 
 def timed(label, fns):
     """Device ms of each of kernel, plain and library call (the keys of
-    ``fns``), printed beside the event-timed cost of a call."""
-    out = {}
+    ``fns``), printed beside the event-timed cost of a call.  Without a
+    library call, ``library_ms`` is None."""
+    out = {"library_ms": None}
     parts = []
     for key, fn in fns.items():
         ms, n = device_ms(fn)
@@ -124,11 +141,11 @@ def timed(label, fns):
     return out
 
 
-def compare(name, got, want, dtype_name):
+def compare(name, got, want, dtype_name, tol=None):
     import torch
 
     got, want = got.float(), want.float()
-    tol = ATOL[dtype_name]
+    tol = tol or ATOL[dtype_name]
     err = (got - want).abs()
     ok = bool(torch.all(err <= tol + tol * want.abs()))
     check(torch.isfinite(got).all().item(), f"{name}: non-finite output")
@@ -220,25 +237,139 @@ def phase_kernels(torch, fa, rn, ref, hw):
     return rows
 
 
-def make_requests(engine_mod, vocab, n, seed):
+def phase_mamba_kernels(torch, rn, ssd, ref, hw):
+    """Phase 3, Mamba-2 part: the gated norm and the SSD block against their
+    plain versions, then timings.  No single PyTorch call computes either
+    function, so neither has a library time."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    F = torch.nn.functional
+    bf16 = torch.bfloat16
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def ssd_inputs(N, l, h, p, g, n, dtype):
+        return (randn(N, l, h, p, dtype=dtype), F.softplus(randn(N, l, h)),
+                -torch.exp(randn(h) * 0.3), randn(N, l, g, n, dtype=dtype),
+                randn(N, l, g, n, dtype=dtype))
+
+    errs = {}
+    # the test sweep, then mamba2-370m's decode (4 slots) and prefill rows
+    gated_cases = [(dtype, shape) for dtype in (torch.float32, bf16)
+                   for shape in ((4, 16, 128), (33, 256))]
+    gated_cases += [(bf16, (4, 2048)), (bf16, (320, 2048))]
+    for dtype, shape in gated_cases:
+        dn = str(dtype).split(".")[1]
+        y, z = randn(*shape, dtype=dtype), randn(*shape, dtype=dtype)
+        s = (randn(shape[-1]) * 0.1 + 1.0).to(dtype)
+        errs[("gated", dn, shape)] = compare(
+            f"gated_rmsnorm {dn} {shape}", rn.gated_rmsnorm(y, z, s),
+            ref.gated_rmsnorm_ref(y, z, s), dn)
+    # the model's gate: a strided slice of the input projection
+    proj = randn(320, 2 * 2048 + 2 * 128 + 32, dtype=bf16)
+    y = randn(320, 2048, dtype=bf16)
+    s = torch.ones(2048, device=dev, dtype=bf16)
+    compare(f"gated_rmsnorm bfloat16 (320, 2048) gate row-stride "
+            f"{proj.stride(0)}", rn.gated_rmsnorm(y, proj[:, :2048], s),
+            ref.gated_rmsnorm_ref(y, proj[:, :2048], s), "bfloat16")
+    # the test sweep (N, l, h, p, g, n), a ragged chunk, then full width:
+    # the two 256-token chunks of a 320-token mamba2-370m prefill
+    ssd_cases = [(dtype, case) for dtype in (torch.float32, bf16)
+                 for case in ((1, 32, 4, 16, 1, 8), (2, 64, 8, 32, 2, 16),
+                              (1, 16, 2, 8, 2, 4), (3, 40, 4, 64, 1, 128))]
+    ssd_cases.append((bf16, (2, 256, 32, 64, 1, 128)))
+    for dtype, case in ssd_cases:
+        dn = str(dtype).split(".")[1]
+        x, dt_, A, B, C = ssd_inputs(*case, dtype)
+        errs[("ssd", dn, case)] = compare(
+            f"ssd_intra_chunk {dn} in, float32 out, N,l,h,p,g,n={case}",
+            ssd.ssd_intra_chunk(x, dt_, A, B, C, out_dtype=torch.float32),
+            ref.ssd_intra_chunk_ref(x, dt_, A, B, C, out_dtype=torch.float32),
+            "float32", tol=SSD_TOL)
+    x, dt_, A, B, C = ssd_inputs(2, 256, 32, 64, 1, 128, bf16)
+    compare("ssd_intra_chunk bfloat16 in and out, full width",
+            ssd.ssd_intra_chunk(x, dt_, A, B, C),
+            ref.ssd_intra_chunk_ref(x, dt_, A, B, C), "bfloat16")
+
+    rows = []
+    for nrows in (320, 4):      # a 320-token prefill; a decode step's 4 slots
+        y, z = randn(nrows, 2048, dtype=bf16), randn(nrows, 2048, dtype=bf16)
+        s = (randn(2048) * 0.1 + 1.0).to(bf16)
+        n_bytes = 3 * nrows * 2048 * 2 + 2048 * 2
+        flops = 8 * nrows * 2048     # silu (exp, add, div), *y, h*h, +, *r, *s
+        bound, by = hw.bound_s(n_bytes, flops, bf16)
+        t = timed(f"gated_rmsnorm bf16 rows{nrows} D2048 (no library call)",
+                  dict(ms=lambda: rn.gated_rmsnorm(y, z, s),
+                       plain_ms=lambda: ref.gated_rmsnorm_ref(y, z, s)))
+        print(f"  bound {bound * 1e3:.6f} ms ({by}: {n_bytes} B, {flops} FLOP)")
+    rows.append(dict(name="gated_rmsnorm", route="cuda",
+                     source="src/repro_torch/kernels/csrc/rmsnorm.cu",
+                     replaces="src/repro/kernels/rmsnorm.py:26",
+                     max_abs_err=errs[("gated", "bfloat16", (4, 2048))],
+                     bound_ms=bound * 1e3, bound_by=by, **t))
+    N, l, h, p, g, n = 2, 256, 32, 64, 1, 128
+    n_bytes = (N * l * h * p * 2 + N * l * h * 4 + h * 4 + 2 * N * l * g * n * 2
+               + N * l * h * p * 4)           # x, dt, A, B, C in; fp32 y out
+    pairs = l * (l + 1) // 2                  # causal (i, j <= i) pairs
+    flops = N * (g * pairs * 2 * n             # C_i . B_j per group
+                 + h * pairs * (2 * p + 3)     # decay, weight, W @ xdt
+                 + l * h * (p + 2))            # x * dt, dt * A, cumsum
+    bound, by = hw.bound_s(n_bytes, flops, bf16)
+    t = timed(f"ssd_intra_chunk bf16 in, fp32 out, N{N} l{l} h{h} p{p} g{g} "
+              f"n{n} (no library call)", dict(
+                  ms=lambda: ssd.ssd_intra_chunk(x, dt_, A, B, C,
+                                                 out_dtype=torch.float32),
+                  plain_ms=lambda: ref.ssd_intra_chunk_ref(
+                      x, dt_, A, B, C, out_dtype=torch.float32)))
+    print(f"  bound {bound * 1e3:.6f} ms ({by}: {n_bytes} B, {flops} FLOP)")
+    # The serve's prompts (128, 320) are padded to whole chunks, which
+    # copies x, B and C: the timing above is that contiguous layout.  A
+    # prompt of whole chunks hands the kernel strided views of the conv
+    # output instead; checked and timed here, not in the kernels line.
+    xbc = randn(N, l, h * p + 2 * g * n, dtype=bf16)
+    xs = xbc[..., :h * p].unflatten(-1, (h, p))
+    Bs = xbc[..., h * p:h * p + g * n].unflatten(-1, (g, n))
+    Cs = xbc[..., h * p + g * n:].unflatten(-1, (g, n))
+    label = (f"ssd_intra_chunk bf16 in, fp32 out, N{N} l{l} h{h} p{p} g{g} "
+             f"n{n}, x/B/C views of one buffer (row stride {xbc.stride(1)})")
+    compare(label, ssd.ssd_intra_chunk(xs, dt_, A, Bs, Cs,
+                                       out_dtype=torch.float32),
+            ref.ssd_intra_chunk_ref(xs, dt_, A, Bs, Cs,
+                                    out_dtype=torch.float32),
+            "float32", tol=SSD_TOL)
+    timed(label, dict(ms=lambda: ssd.ssd_intra_chunk(
+        xs, dt_, A, Bs, Cs, out_dtype=torch.float32)))
+    rows.append(dict(name="ssd_intra_chunk", route="cuda",
+                     source="src/repro_torch/kernels/csrc/ssd.cu",
+                     replaces="src/repro/kernels/ssd.py:27",
+                     max_abs_err=errs[("ssd", "bfloat16", (N, l, h, p, g, n))],
+                     bound_ms=bound * 1e3, bound_by=by, **t))
+    return rows
+
+
+def make_requests(engine_mod, vocab, n, seed, lens):
     import numpy as np
 
     rng = np.random.default_rng(seed)
-    return [engine_mod.Request(i, rng.integers(0, vocab, 128 * (1 + i % 2))
+    return [engine_mod.Request(i, rng.integers(0, vocab, lens[i % len(lens)])
                                .astype(np.int32), max_new_tokens=32)
             for i in range(n)]
 
 
-def phase_serve(torch, cfg, params, engine, fa, rn, perf, profile=False):
-    """Phase 4 (and 6 with ``profile``): serve 8 requests through 4 slots."""
+def phase_serve(torch, cfg, params, engine, counters, perf, *, lens, max_seq,
+                profile=False):
+    """Phases 4 and 7 (6 and 9 with ``profile``): serve 8 requests of the
+    prompt lengths ``lens`` through 4 slots, with every launch counter of
+    ``counters`` (name -> (module, attribute)) set to 0 just before."""
     eng = engine.ServeEngine(cfg, params, engine.EngineConfig(
-        slots=4, max_seq_len=512, job_name="chip_smoke:llsc-100m"))
-    for r in make_requests(engine, cfg.vocab_size, 8, seed=1):
+        slots=4, max_seq_len=max_seq, job_name=f"chip_smoke:{cfg.name}"))
+    for r in make_requests(engine, cfg.vocab_size, 8, seed=1, lens=lens):
         eng.submit(r)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fa.launches = 0
-    rn.launches = 0
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
     with perf.perf_flags(perf.PerfFlags(flash_kernel=True)):
         if profile:
             from torch.profiler import ProfilerActivity, profile as prof_ctx
@@ -249,8 +380,109 @@ def phase_serve(torch, cfg, params, engine, fa, rn, perf, profile=False):
             return eng, stats, prof
         stats = eng.run()
     torch.cuda.synchronize()
-    counts = {"flash_attention": fa.launches, "rmsnorm": rn.launches}
+    counts = {name: getattr(mod, attr) for name, (mod, attr) in
+              counters.items()}
     return eng, stats, counts
+
+
+def report_serve(torch, np, eng, stats, counts, expect, cfg, registry):
+    """Print the serve's numbers and check its launch counts and
+    completions."""
+    n_pre, n_dec = len(eng.prefill_s), stats["steps"]
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    print(f"{stats['requests']} requests, {stats['tokens']} tokens in "
+          f"{stats['wall_s'] * 1e3:.1f} ms: {stats['tokens_per_s']:.1f} "
+          f"tokens/s")
+    lens = sorted({c.prompt_len for c in eng.completions})
+    print(f"prefill: {n_pre} x {np.mean(eng.prefill_s) * 1e3:.3f} ms mean "
+          f"({'/'.join(map(str, lens))}-token prompts, first token "
+          f"included); decode: {n_dec} steps x "
+          f"{np.mean(eng.decode_s) * 1e3:.3f} ms mean, "
+          f"{np.median(eng.decode_s) * 1e3:.3f} ms median (4 slots)")
+    print(f"peak memory allocated: {peak_mb:.1f} MiB")
+    print(f"launches on the main path: {counts} (expected {expect})")
+    check(counts == expect, f"launch counts {counts} != {expect}")
+    check(stats["requests"] == 8, "not every request completed")
+    for c in eng.completions:
+        check(len(c.tokens) == 32 and all(0 <= t < cfg.vocab_size
+                                          for t in c.tokens),
+              f"request {c.request_id}: bad completion")
+    pub = registry.entries()[f"chip_smoke:{cfg.name}"]
+    d = stats["decision"]
+    print(f"LLload registry: duty {pub.duty_cycle:.6f} of the H100 bf16 "
+          f"peak, step {pub.step_time_s * 1e3:.3f} ms, device memory "
+          f"{pub.hbm_used_gb:.3f} / {pub.hbm_total_gb:.3f} GB; overload "
+          f"controller: slots 4 -> {d.nppn} ({d.reason})")
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def card_vs_cpu(torch, np, model_lib, perf, time_axis, cfg, S):
+    """Phases 5 and 8: float32 logits of one seed's weights on the card and
+    on the CPU over an S-token prefill and 8 greedy decode steps, each side
+    choosing its own tokens."""
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p_cpu = model_lib.init_params(cfg, torch.Generator().manual_seed(0),
+                                  device="cpu", dtype=torch.float32)
+    f32 = {}
+    for dev in ("cuda", "cpu"):
+        p = _to(p_cpu, dev) if dev == "cuda" else p_cpu
+        tokens = torch.as_tensor(
+            np.random.default_rng(2).integers(0, cfg.vocab_size, (1, S)),
+            device=dev)
+        logits_all = []
+        with perf.perf_flags(perf.PerfFlags(flash_kernel=True)):
+            logits, cache = model_lib.prefill(p, cfg32, tokens)
+            # room for 8 more tokens on the time axis of attention caches
+            cache = {part: {key: {n: torch.nn.functional.pad(
+                t, (0, 0, 0, 0, 0, 8)) if n in time_axis else t
+                for n, t in e.items()} for key, e in entries.items()}
+                for part, entries in cache.items()}
+            for step in range(9):
+                logits_all.append(logits.cpu())
+                if step == 8:
+                    break
+                tok = torch.argmax(logits, dim=-1)
+                logits, cache = model_lib.decode_step(p, cfg32, tok[:, None],
+                                                      cache, S + step)
+        f32[dev] = logits_all
+        del p, cache
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(f32["cuda"], f32["cpu"])):
+        err = float((a - b).abs().max())
+        same = bool(torch.equal(a.argmax(-1), b.argmax(-1)))
+        worst = max(worst, err)
+        print(f"  {'prefill' if i == 0 else f'decode {i}'}: max |card - cpu| "
+              f"{err:.3e}, same greedy token: {same}")
+        check(torch.isfinite(a).all().item(), "non-finite logits on the card")
+        check(same, "the card and the CPU chose different tokens")
+    check(worst <= 1e-4, f"card vs CPU logits differ by {worst:.3e} > 1e-4")
+    print(f"  worst {worst:.3e} (tol 1e-4)")
+
+
+def report_profile(eng_p, stats_p, prof, serve_wall, untraced):
+    """Phases 6 and 9: busy share of the traced serve and its largest
+    kernels."""
+    acts = device_activities(prof)
+    check(acts, "the traced serve recorded no device activity")
+    per_kernel = {}
+    for name, us, _, _ in acts:
+        per_kernel[name] = per_kernel.get(name, 0.0) + us
+    busy_ms = sum(per_kernel.values()) / 1e3
+    span_ms = (max(e for *_, e in acts) - min(s for *_, s, _ in acts)) / 1e3
+    print(f"device activity {busy_ms:.3f} ms over {stats_p['steps']} decode "
+          f"steps and {len(eng_p.prefill_s)} prefills, within {span_ms:.3f} "
+          f"ms from the first device activity to the last (both from this "
+          f"trace): {100 * busy_ms / span_ms:.2f}% busy, "
+          f"{100 - 100 * busy_ms / span_ms:.2f}% idle; traced wall "
+          f"{stats_p['wall_s'] * 1e3:.1f} ms against {untraced}'s untraced "
+          f"{serve_wall * 1e3:.1f} ms")
+    for key, us in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:10]:
+        print(f"  {us / 1e3:9.3f} ms  {key[:100]}")
 
 
 def main() -> int:
@@ -269,7 +501,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import _build, ref, ssd
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rmsnorm as rn
     from repro_torch.models import model as model_lib
@@ -277,6 +509,12 @@ def main() -> int:
     from repro_torch.monitor import JobRegistry
     from repro_torch.roofline import hw
     from repro_torch.serve import engine
+
+    counters = {"flash_attention": (fa, "launches"),
+                "rmsnorm": (rn, "launches"),
+                "gated_rmsnorm": (rn, "gated_launches"),
+                "ssd_intra_chunk": (ssd, "launches")}
+    registry = JobRegistry.global_registry()
 
     t_all = time.perf_counter()
     print("=== 1. card and versions ===")
@@ -305,100 +543,61 @@ def main() -> int:
 
     print("=== 3. kernels against their plain versions on the card ===")
     rows = phase_kernels(torch, fa, rn, ref, hw)
+    rows += phase_mamba_kernels(torch, rn, ssd, ref, hw)
 
     print("=== 4. serve llsc-100m, full width and depth, bf16, flash_kernel ===")
     cfg = get_config("llsc-100m")
     params = model_lib.init_params(cfg, torch.Generator().manual_seed(0),
                                    device="cuda")
-    phase_serve(torch, cfg, params, engine, fa, rn, perf)     # warm-up
-    eng, stats, counts = phase_serve(torch, cfg, params, engine, fa, rn, perf)
+    serve = dict(lens=(128, 256), max_seq=512)
+    phase_serve(torch, cfg, params, engine, counters, perf, **serve)  # warm-up
+    eng, stats, counts = phase_serve(torch, cfg, params, engine, counters,
+                                     perf, **serve)
     n_pre, n_dec = len(eng.prefill_s), stats["steps"]
-    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
-    print(f"{stats['requests']} requests, {stats['tokens']} tokens in "
-          f"{stats['wall_s'] * 1e3:.1f} ms: {stats['tokens_per_s']:.1f} "
-          f"tokens/s")
-    print(f"prefill: {n_pre} x {np.mean(eng.prefill_s) * 1e3:.3f} ms mean "
-          f"(128/256-token prompts, first token included); decode: {n_dec} "
-          f"steps x {np.mean(eng.decode_s) * 1e3:.3f} ms mean, "
-          f"{np.median(eng.decode_s) * 1e3:.3f} ms median (4 slots)")
-    print(f"peak memory allocated: {peak_mb:.1f} MiB")
     expect = {"flash_attention": cfg.n_layers * n_pre,
-              "rmsnorm": (2 * cfg.n_layers + 1) * (n_pre + n_dec)}
-    print(f"launches on the main path: {counts} (expected {expect})")
-    check(counts == expect, f"launch counts {counts} != {expect}")
-    check(stats["requests"] == 8, "not every request completed")
-    for c in eng.completions:
-        check(len(c.tokens) == 32 and all(0 <= t < cfg.vocab_size
-                                          for t in c.tokens),
-              f"request {c.request_id}: bad completion")
-    pub = JobRegistry.global_registry().entries()["chip_smoke:llsc-100m"]
-    d = stats["decision"]
-    print(f"LLload registry: duty {pub.duty_cycle:.6f} of the H100 bf16 "
-          f"peak, step {pub.step_time_s * 1e3:.3f} ms, device memory "
-          f"{pub.hbm_used_gb:.3f} / {pub.hbm_total_gb:.3f} GB; overload "
-          f"controller: slots 4 -> {d.nppn} ({d.reason})")
-    for row in rows:
-        row["launches"] = counts[row["name"]]
-    serve_wall = stats["wall_s"]
+              "rmsnorm": (2 * cfg.n_layers + 1) * (n_pre + n_dec),
+              "gated_rmsnorm": 0, "ssd_intra_chunk": 0}
+    report_serve(torch, np, eng, stats, counts, expect, cfg, registry)
+    launches = {k: counts[k] for k in ("flash_attention", "rmsnorm")}
+    llsc_wall = stats["wall_s"]
 
     print("=== 5. card vs CPU, llsc-100m full width, float32 ===")
-    cfg32 = dataclasses.replace(cfg, dtype="float32")
-    f32 = {}
-    for dev in ("cuda", "cpu"):
-        p = model_lib.init_params(cfg, torch.Generator().manual_seed(0),
-                                  device=dev, dtype=torch.float32)
-        tokens = torch.as_tensor(
-            np.random.default_rng(2).integers(0, cfg.vocab_size, (1, 128)),
-            device=dev)
-        logits_all = []
-        with perf.perf_flags(perf.PerfFlags(flash_kernel=True)):
-            logits, cache = model_lib.prefill(p, cfg32, tokens)
-            cache = {part: {key: {n: torch.nn.functional.pad(
-                t, (0, 0, 0, 0, 0, 8)) for n, t in e.items()}
-                for key, e in entries.items()}
-                for part, entries in cache.items()}
-            for step in range(9):
-                logits_all.append(logits.cpu())
-                if step == 8:
-                    break
-                tok = torch.argmax(logits, dim=-1)
-                logits, cache = model_lib.decode_step(p, cfg32, tok[:, None],
-                                                      cache, 128 + step)
-        f32[dev] = logits_all
-        del p, cache
-    worst = 0.0
-    for i, (a, b) in enumerate(zip(f32["cuda"], f32["cpu"])):
-        err = float((a - b).abs().max())
-        same = bool(torch.equal(a.argmax(-1), b.argmax(-1)))
-        worst = max(worst, err)
-        print(f"  {'prefill' if i == 0 else f'decode {i}'}: max |card - cpu| "
-              f"{err:.3e}, same greedy token: {same}")
-        check(torch.isfinite(a).all().item(), "non-finite logits on the card")
-        check(same, "the card and the CPU chose different tokens")
-    check(worst <= 1e-4, f"card vs CPU logits differ by {worst:.3e} > 1e-4")
-    print(f"  worst {worst:.3e} (tol 1e-4)")
+    card_vs_cpu(torch, np, model_lib, perf, engine.TIME_AXIS_LEAVES, cfg, 128)
 
     print("=== 6. the serve of phase 4 under torch.profiler ===")
-    eng_p, stats_p, prof = phase_serve(torch, cfg, params, engine, fa, rn,
-                                       perf, profile=True)
-    acts = device_activities(prof)
-    check(acts, "the traced serve recorded no device activity")
-    per_kernel = {}
-    for name, us, _, _ in acts:
-        per_kernel[name] = per_kernel.get(name, 0.0) + us
-    busy_ms = sum(per_kernel.values()) / 1e3
-    span_ms = (max(e for *_, e in acts) - min(s for *_, s, _ in acts)) / 1e3
-    print(f"device activity {busy_ms:.3f} ms over {stats_p['steps']} decode "
-          f"steps and {len(eng_p.prefill_s)} prefills, within {span_ms:.3f} "
-          f"ms from the first device activity to the last (both from this "
-          f"trace): {100 * busy_ms / span_ms:.2f}% busy, "
-          f"{100 - 100 * busy_ms / span_ms:.2f}% idle; traced wall "
-          f"{stats_p['wall_s'] * 1e3:.1f} ms against phase 4's untraced "
-          f"{serve_wall * 1e3:.1f} ms")
-    for key, us in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:10]:
-        print(f"  {us / 1e3:9.3f} ms  {key[:100]}")
+    report_profile(*phase_serve(torch, cfg, params, engine, counters, perf,
+                                profile=True, **serve), llsc_wall, "phase 4")
+    del params
 
-    print(f"=== 7. summary (whole run {time.perf_counter() - t_all:.1f} s) ===")
+    print("=== 7. serve mamba2-370m, full width and depth, bf16 ===")
+    cfg = get_config("mamba2-370m")
+    params = model_lib.init_params(cfg, torch.Generator().manual_seed(0),
+                                   device="cuda")
+    serve = dict(lens=(128, 320), max_seq=384)
+    phase_serve(torch, cfg, params, engine, counters, perf, **serve)  # warm-up
+    eng, stats, counts = phase_serve(torch, cfg, params, engine, counters,
+                                     perf, **serve)
+    n_pre, n_dec = len(eng.prefill_s), stats["steps"]
+    norms = cfg.n_layers * (2 if cfg.d_ff else 1) + 1   # 49: no ln2, d_ff 0
+    expect = {"flash_attention": 0,
+              "rmsnorm": norms * (n_pre + n_dec),
+              "gated_rmsnorm": cfg.n_layers * (n_pre + n_dec),
+              "ssd_intra_chunk": cfg.n_layers * n_pre}
+    report_serve(torch, np, eng, stats, counts, expect, cfg, registry)
+    launches.update({k: counts[k] for k in ("gated_rmsnorm",
+                                            "ssd_intra_chunk")})
+    mamba_wall = stats["wall_s"]
+
+    print("=== 8. card vs CPU, mamba2-370m full width, float32 ===")
+    card_vs_cpu(torch, np, model_lib, perf, engine.TIME_AXIS_LEAVES, cfg, 320)
+
+    print("=== 9. the serve of phase 7 under torch.profiler ===")
+    report_profile(*phase_serve(torch, cfg, params, engine, counters, perf,
+                                profile=True, **serve), mamba_wall, "phase 7")
+
+    print(f"=== 10. summary (whole run {time.perf_counter() - t_all:.1f} s) ===")
+    for row in rows:
+        row["launches"] = launches[row["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in rows]}))

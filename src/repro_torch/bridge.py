@@ -2,8 +2,10 @@
 
 :func:`from_jax_params` takes the JAX package's parameter tree with numpy
 leaves (``jax.tree.map(np.asarray, params)`` on the JAX side) and returns
-the port's tree, the same layout with torch tensors in the model dtype,
-so both packages compute the same function in the parity tests.  The
+the port's tree, the same layout with torch tensors, each in the dtype
+the port's ``param_spec`` gives it (the model dtype, or float32 for
+Mamba-2's A_log, D and dt_bias, as in the reference), so both packages
+compute the same function in the parity tests.  The
 stacked ``blocks`` leaves keep their leading ``n_periods`` axis.
 """
 from __future__ import annotations
@@ -12,7 +14,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.models.transformer import model_dtype, param_spec
+from repro_torch.models.transformer import leaf_dtype, param_spec
 
 
 def from_jax_params(tree, cfg, device="cuda"):
@@ -21,7 +23,6 @@ def from_jax_params(tree, cfg, device="cuda"):
     Raises when a key or a shape differs from the port's ``param_spec``.
     """
     dev = resolve_device(device)
-    dtype = model_dtype(cfg)
 
     def convert(node, spec, path):
         if isinstance(spec, dict):
@@ -31,13 +32,14 @@ def from_jax_params(tree, cfg, device="cuda"):
                                  f"{sorted(spec)}")
             return {k: convert(node[k], spec[k], f"{path}[{k!r}]")
                     for k in spec}
-        shape = tuple(spec[0])
+        shape = tuple(spec.shape)
         # a float32 copy: numpy has no bfloat16, bf16 -> f32 is exact, and
         # the tensor must not share the caller's (possibly read-only) buffer
         arr = np.array(node, dtype=np.float32)
         if arr.shape != shape:
             raise ValueError(f"params{path}: shape {arr.shape}, expected "
                              f"{shape}")
-        return torch.from_numpy(arr).to(device=dev, dtype=dtype)
+        return torch.from_numpy(arr).to(device=dev,
+                                        dtype=leaf_dtype(spec, cfg))
 
     return convert(tree, param_spec(cfg), "")

@@ -1,24 +1,39 @@
-// RMSNorm forward for NVIDIA Hopper, sm_90a:
-//   out = x * rsqrt(mean(x^2) + eps) * scale, statistics in fp32.
+// RMSNorm forward for NVIDIA Hopper, sm_90a, two entry points:
+//   rmsnorm_fwd:        out = x * rsqrt(mean(x^2) + eps) * scale
+//   gated_rmsnorm_fwd:  h = y * silu(z); out = h * rsqrt(mean(h^2) + eps) * scale
+// statistics in fp32, the scale applied in fp32 before the cast back.
 //
 // Replaces: src/repro/kernels/rmsnorm.py:19 `_rmsnorm_kernel` (launched by
-// `rmsnorm` at :50 through `_rows_call` :35, `pl.pallas_call` at :40).
+// `rmsnorm` at :50 through `_rows_call` :35, `pl.pallas_call` at :40) and
+// :26 `_gated_kernel` (launched by `gated_rmsnorm` at :65, the same
+// `pallas_call`), the Mamba-2 gated norm of src/repro/models/ssm.py:177.
 //
 // What bounds it on the card: bytes.  Each element is read, squared and
-// summed, then scaled once more: ~4 FLOPs per element against 2-4 bytes
-// read and 2-4 written, far below the ~295 FLOP/byte ridge of an H100.
-// At the model's shapes (4 to 512 rows of 768) the data is a few KB to
-// ~1.5 MB, so in practice a launch costs its fixed latency.
+// summed, then scaled once more: ~4 FLOPs per element (~8 with the gate's
+// silu) against 2-4 bytes read and 2-4 written, far below the ~295
+// FLOP/byte ridge of an H100.  At the models' shapes (4 to 512 rows of 768
+// for the plain norm, 4 to 320 rows of 2048 for the gated one) the data is
+// a few KB to ~4 MB, so in practice a launch costs its fixed latency.
 //
 // Design.  The TPU kernel normalises a [block_rows, D] tile per grid step
-// and shrinks block_rows until it divides the row count.  Here one warp owns
-// one row: its lanes stride over the row with neighbouring lanes on
-// neighbouring addresses (coalesced), sum x^2 in fp32, combine the sum
-// with shuffles, then write x * r * scale in fp32 before the cast back, in
-// the reference's order.  Four warps share a block; any row count works,
-// since a warp past the last row simply exits.  The second read of the row
-// is served from L1/L2.  x and out are contiguous [rows, D]; scale is [D]
-// in x's dtype, float32 or bfloat16.
+// and shrinks block_rows until it divides the row count.  Here the plain
+// norm gives one warp one row: its lanes stride over the row with
+// neighbouring lanes on neighbouring addresses (coalesced), sum the squares
+// in fp32, combine the sum with shuffles, then write x * r * scale in fp32
+// before the cast back, in the reference's order.  Four warps share a
+// block; any row count works, since a warp past the last row simply exits.
+// It reads its row a second time from L1/L2.  The gated norm's rows are
+// wider (2048 in mamba2-370m), and a warp that walks one of them waits on
+// one memory latency per element (15 us a launch on an H100, whatever the
+// row count).  So it gives each row a block of 256 threads: a thread loads
+// its (up to 16) elements of y and z into registers with every load issued
+// before the first use, keeps h = y * silu(z) there, and the block sums
+// the squares with shuffles and 8 partial sums in shared memory.  y and z
+// are read once; rows of up to 4096 elements are taken.  Its gate z is a
+// strided slice of the input projection in the model, so y and z each take
+// a row stride (elements between rows; the last dimension is contiguous).
+// x, y, z, scale and out share one dtype, float32 or bfloat16; out is
+// contiguous [rows, D].
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -26,6 +41,8 @@
 namespace {
 
 constexpr int WARPS = 4;
+constexpr int GATED_THREADS = 256;      // one block per gated row
+constexpr int GATED_MAX_V = 16;         // values a thread holds: d <= 4096
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -72,6 +89,59 @@ cudaError_t launch(const void* x, const void* scale, void* out, int rows,
   return cudaGetLastError();
 }
 
+template <typename T>
+__global__ void __launch_bounds__(GATED_THREADS)
+gated_rmsnorm_kernel(const T* __restrict__ y, const T* __restrict__ z,
+                     const T* __restrict__ scale, T* __restrict__ out,
+                     int d, long long y_stride, long long z_stride,
+                     float eps) {
+  __shared__ float warp_ss[GATED_THREADS / 32];
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const long long row = blockIdx.x;
+  const T* yr = y + row * y_stride;
+  const T* zr = z + row * z_stride;
+  float hv[GATED_MAX_V], zv[GATED_MAX_V];
+#pragma unroll
+  for (int v = 0; v < GATED_MAX_V; ++v) {  // every load issued first
+    const int i = threadIdx.x + v * GATED_THREADS;
+    hv[v] = i < d ? to_f32(yr[i]) : 0.f;
+    zv[v] = i < d ? to_f32(zr[i]) : 0.f;
+  }
+  float ss = 0.f;
+#pragma unroll
+  for (int v = 0; v < GATED_MAX_V; ++v) {  // h = y * silu(z); 0 past d
+    hv[v] *= zv[v] / (1.f + expf(-zv[v]));
+    ss += hv[v] * hv[v];
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    ss += __shfl_xor_sync(0xffffffffu, ss, off);
+  if (lane == 0) warp_ss[warp] = ss;
+  __syncthreads();
+  ss = 0.f;
+#pragma unroll
+  for (int w = 0; w < GATED_THREADS / 32; ++w) ss += warp_ss[w];
+  const float r = rsqrtf(ss / static_cast<float>(d) + eps);
+  T* orow = out + row * d;
+#pragma unroll
+  for (int v = 0; v < GATED_MAX_V; ++v) {
+    const int i = threadIdx.x + v * GATED_THREADS;
+    if (i < d) orow[i] = from_f32<T>(hv[v] * r * to_f32(scale[i]));
+  }
+}
+
+template <typename T>
+cudaError_t launch_gated(const void* y, const void* z, const void* scale,
+                         void* out, int rows, int d, long long y_stride,
+                         long long z_stride, float eps, cudaStream_t stream) {
+  gated_rmsnorm_kernel<T><<<rows, GATED_THREADS, 0, stream>>>(
+      static_cast<const T*>(y), static_cast<const T*>(z),
+      static_cast<const T*>(scale), static_cast<T*>(out), d, y_stride,
+      z_stride, eps);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // x, out [rows, d] contiguous; scale [d] in x's dtype.  bf16: 1 for
@@ -84,4 +154,24 @@ extern "C" int rmsnorm_fwd(const void* x, const void* scale, void* out,
   if (bf16)
     return launch<__nv_bfloat16>(x, scale, out, rows, d, eps, st);
   return launch<float>(x, scale, out, rows, d, eps, st);
+}
+
+// y [rows, d] with row stride y_stride, z [rows, d] with row stride
+// z_stride (elements; the last dimension contiguous), scale [d], out
+// [rows, d] contiguous, all in one dtype.  bf16: 1 for bfloat16, 0 for
+// float32.  Returns a cudaError_t (0 on success).
+extern "C" int gated_rmsnorm_fwd(const void* y, const void* z,
+                                 const void* scale, void* out, int bf16,
+                                 int rows, int d, long long y_stride,
+                                 long long z_stride, float eps,
+                                 void* stream) {
+  if (rows <= 0 || d <= 0 || d > GATED_THREADS * GATED_MAX_V || y_stride < d
+      || z_stride < d)
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    return launch_gated<__nv_bfloat16>(y, z, scale, out, rows, d, y_stride,
+                                       z_stride, eps, st);
+  return launch_gated<float>(y, z, scale, out, rows, d, y_stride, z_stride,
+                             eps, st);
 }

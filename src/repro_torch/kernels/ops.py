@@ -9,6 +9,7 @@ from __future__ import annotations
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as _rn
+from repro_torch.kernels import ssd as _ssd
 
 
 def flash_attention(q, k, v, *, causal: bool = True):
@@ -32,3 +33,18 @@ def rmsnorm(x, scale, eps: float = 1e-5):
     if x.is_cuda:
         return _rn.rmsnorm(x, scale, eps)
     return ref.rmsnorm_ref(x, scale, eps)
+
+
+def gated_rmsnorm(y, z, scale, eps: float = 1e-5):
+    """RMSNorm(y * silu(z)); y, z [..., D]; scale [D]; fp32 statistics."""
+    if y.is_cuda:
+        return _rn.gated_rmsnorm(y, z, scale, eps)
+    return ref.gated_rmsnorm_ref(y, z, scale, eps)
+
+
+def ssd_intra_chunk(x, dt, A, B, C, *, out_dtype=None):
+    """x [b,l,h,p]; dt [b,l,h]; A [h]; B,C [b,l,g,n] -> y_diag [b,l,h,p] in
+    ``out_dtype`` (default x's dtype), each of the b chunks on its own."""
+    if x.is_cuda:
+        return _ssd.ssd_intra_chunk(x, dt, A, B, C, out_dtype=out_dtype)
+    return ref.ssd_intra_chunk_ref(x, dt, A, B, C, out_dtype=out_dtype)

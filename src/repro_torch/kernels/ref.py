@@ -8,6 +8,7 @@ them on the card.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 F32 = torch.float32
 NEG_INF = -1e30
@@ -35,3 +36,51 @@ def rmsnorm_ref(x, scale, eps: float = 1e-5):
     xf = x.to(F32)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * scale.to(F32)).to(x.dtype)
+
+
+def gated_rmsnorm_ref(y, z, scale, eps: float = 1e-5):
+    """Mamba-2 gated norm: RMSNorm(y * silu(z)), fp32 statistics, the scale
+    applied in fp32, cast to y's dtype."""
+    h = y.to(F32) * F.silu(z.to(F32))
+    var = torch.mean(h * h, dim=-1, keepdim=True)
+    return (h * torch.rsqrt(var + eps) * scale.to(F32)).to(y.dtype)
+
+
+def cumsum_f32(x, dim):
+    """float32 cumsum accumulated in float64.  The CPU already accumulates a
+    float32 cumsum in double and CUDA in float; doing it in double on both
+    keeps the card's decays, which are differences of these sums, within
+    rounding of the CPU's."""
+    return torch.cumsum(x, dim, dtype=torch.float64).to(F32)
+
+
+def segsum(x):
+    """x [..., L] -> [..., L, L]: entry (i, j) is sum_{j<k<=i} x_k for
+    j <= i and -inf above the diagonal (the counterpart of
+    ``repro.models.ssm._segsum``).  The mask is a selection, so exp of it
+    is exactly 0 there, never inf * 0."""
+    L = x.shape[-1]
+    cs = cumsum_f32(x, -1)
+    diff = cs[..., :, None] - cs[..., None, :]
+    idx = torch.arange(L, device=x.device)
+    return torch.where(idx[:, None] >= idx[None, :], diff,
+                       torch.full_like(diff, float("-inf")))
+
+
+def ssd_intra_chunk_ref(x, dt, A, B, C, *, out_dtype=None):
+    """Intra-chunk SSD (each chunk's diagonal block).
+
+    x [b,l,h,p]; dt [b,l,h] (>0); A [h] (<0); B,C [b,l,g,n].  Returns
+    y_diag [b,l,h,p] = sum_{j<=i} C_i.B_j exp(sum_{j<k<=i} dtA) x_j dt_j,
+    computed in fp32 and cast to ``out_dtype`` (default x's dtype).
+    """
+    b, l, h, p = x.shape
+    g = B.shape[2]
+    hg = h // g
+    dtA = dt.to(F32) * A.to(F32)[None, None, :]              # [b,l,h]
+    L = torch.exp(segsum(dtA.transpose(1, 2)))               # [b,h,i,j]
+    cb = torch.einsum("bign,bjgn->bgij", C.to(F32), B.to(F32))
+    w = cb[:, :, None] * L.reshape(b, g, hg, l, l)           # [b,g,hg,i,j]
+    xdt = x.to(F32) * dt.to(F32)[..., None]                  # [b,l,h,p]
+    y = torch.einsum("bghij,bjghp->bighp", w, xdt.reshape(b, l, g, hg, p))
+    return y.reshape(b, l, h, p).to(out_dtype or x.dtype)

@@ -1,9 +1,10 @@
-"""ctypes wrapper of the hand-written CUDA RMSNorm (``csrc/rmsnorm.cu``),
-the port of ``repro/kernels/rmsnorm.py:19 _rmsnorm_kernel``.
+"""ctypes wrappers of the hand-written CUDA RMSNorm and gated RMSNorm
+(``csrc/rmsnorm.cu``), the ports of ``repro/kernels/rmsnorm.py:19
+_rmsnorm_kernel`` and ``:26 _gated_kernel``.
 
-Takes CUDA tensors only and raises on anything the kernel does not take;
+Both take CUDA tensors only and raise on anything the kernel does not take;
 the CPU path lives in :mod:`repro_torch.kernels.ops`.  ``launches`` counts
-the kernel launches made through this module.
+the launches of the plain norm, ``gated_launches`` those of the gated one.
 """
 from __future__ import annotations
 
@@ -15,8 +16,10 @@ import torch
 from repro_torch.kernels import _build
 
 launches = 0
+gated_launches = 0
 
 DTYPES = (torch.float32, torch.bfloat16)
+GATED_MAX_WIDTH = 4096      # 256 threads x 16 values a row
 
 
 @functools.lru_cache(maxsize=None)
@@ -26,6 +29,30 @@ def _kernel():
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _gated_kernel():
+    fn = _build.load("rmsnorm").gated_rmsnorm_fwd
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                   + [ctypes.c_longlong] * 2
+                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _rows(t, name, d):
+    """``t`` [..., d] as a [rows, d] view with one row stride (the last
+    dimension contiguous); raises when its rows have no single stride."""
+    if t.shape[-1] != d or t.stride(-1) != 1:
+        raise ValueError(f"gated_rmsnorm: {name} {tuple(t.shape)} must end in "
+                         f"a contiguous dimension of {d}")
+    try:
+        rows = t.view(-1, d)
+    except RuntimeError:
+        raise ValueError(f"gated_rmsnorm: the rows of {name} (strides "
+                         f"{t.stride()}) have no single stride") from None
+    return rows, (rows.stride(0) if rows.shape[0] > 1 else d)
 
 
 def rmsnorm(x, scale, eps: float = 1e-5):
@@ -61,4 +88,49 @@ def rmsnorm(x, scale, eps: float = 1e-5):
     if err != 0:
         raise RuntimeError(f"rmsnorm kernel launch failed: CUDA error {err}")
     launches += 1
+    return out
+
+
+def gated_rmsnorm(y, z, scale, eps: float = 1e-5):
+    """RMSNorm(y * silu(z)).  y, z [..., D] of one shape, each with one
+    stride between rows and a contiguous last dimension (the gate is a
+    strided slice of the input projection); scale [D]; all in one dtype.
+    Returns a contiguous tensor of y's shape and dtype."""
+    global gated_launches
+    for name, t in (("y", y), ("z", z), ("scale", scale)):
+        if not t.is_cuda:
+            raise ValueError(f"gated_rmsnorm: {name} is not a CUDA tensor")
+        if t.dtype != y.dtype:
+            raise ValueError(f"gated_rmsnorm: {name} has dtype {t.dtype}, y "
+                             f"has {y.dtype}; the kernel takes one dtype")
+    if y.dtype not in DTYPES:
+        raise ValueError(f"gated_rmsnorm: dtype {y.dtype}; the kernel takes "
+                         f"{DTYPES}")
+    if not (y.device == z.device == scale.device):
+        raise ValueError("gated_rmsnorm: y, z, scale on different devices")
+    if y.dim() == 0 or z.shape != y.shape or scale.shape != (y.shape[-1],):
+        raise ValueError(f"gated_rmsnorm: y {tuple(y.shape)}, z "
+                         f"{tuple(z.shape)} and scale {tuple(scale.shape)} do "
+                         "not match")
+    if not scale.is_contiguous():
+        raise ValueError("gated_rmsnorm: scale must be contiguous")
+    d = y.shape[-1]
+    if d > GATED_MAX_WIDTH:
+        raise ValueError(f"gated_rmsnorm: rows of {d}; the kernel takes at "
+                         f"most {GATED_MAX_WIDTH}")
+    out = torch.empty(y.shape, dtype=y.dtype, device=y.device)
+    if out.numel() == 0:
+        return out
+    y2, y_stride = _rows(y, "y", d)
+    z2, z_stride = _rows(z, "z", d)
+    with torch.cuda.device(y.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _gated_kernel()(y2.data_ptr(), z2.data_ptr(), scale.data_ptr(),
+                              out.data_ptr(), int(y.dtype == torch.bfloat16),
+                              y2.shape[0], d, y_stride, z_stride, float(eps),
+                              stream)
+    if err != 0:
+        raise RuntimeError(f"gated_rmsnorm kernel launch failed: CUDA error "
+                           f"{err}")
+    gated_launches += 1
     return out

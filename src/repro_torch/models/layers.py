@@ -1,10 +1,13 @@
 """Shared layer primitives (counterpart of ``repro.models.layers``):
-RMSNorm, half-split RoPE, the SwiGLU MLP and the embedding.
+the parameter leaf spec, RMSNorm, half-split RoPE, the SwiGLU MLP and the
+embedding.
 
 Functions take ``(params, x, ...)`` with ``params`` a dict of tensors.
 Compute dtype follows the input; statistics accumulate in float32.
 """
 from __future__ import annotations
+
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -13,6 +16,29 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops
 
 F32 = torch.float32
+
+
+def ones(shape):
+    return torch.ones(shape, dtype=F32)
+
+
+def zeros(shape):
+    return torch.zeros(shape, dtype=F32)
+
+
+class Leaf(NamedTuple):
+    """One parameter of a spec tree, as the reference's ``init_*`` makes it.
+
+    With ``std`` set, a normal truncated at two std, times ``std``; else the
+    fixed float32 value ``fixed(shape)`` (ones unless given).  ``fp32``
+    leaves are float32 whatever the model dtype; the others take the model
+    dtype.
+    """
+
+    shape: Tuple[int, ...]
+    std: Optional[float] = None
+    fixed: Callable[[Tuple[int, ...]], torch.Tensor] = ones
+    fp32: bool = False
 
 
 def rmsnorm(params, x, eps: float = 1e-5):

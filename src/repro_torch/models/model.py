@@ -15,11 +15,11 @@ init_cache = transformer.init_cache
 
 def count_params(cfg) -> int:
     """Exact parameter count of ``init_params``, from the shapes alone."""
-    return sum(math.prod(shape) for shape, _ in
+    return sum(math.prod(leaf.shape) for leaf in
                transformer.leaves(transformer.param_spec(cfg)))
 
 
 def model_flops(cfg, n_tokens: int, *, training: bool) -> float:
     """MODEL_FLOPS: 6·N·D (train) or 2·N·D (inference); every parameter of
-    a dense model is active."""
+    a dense or Mamba-2 model is active."""
     return (6.0 if training else 2.0) * count_params(cfg) * n_tokens

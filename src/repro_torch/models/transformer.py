@@ -1,13 +1,21 @@
-"""Model assembly, dense subset (counterpart of ``repro.models.transformer``).
+"""Model assembly: dense and Mamba-2 stacks (counterpart of
+``repro.models.transformer``).
 
-A model is ``n_periods`` copies of a period of layers plus a remainder.  The
-parameter and cache trees keep the reference's layout exactly, so that the
-bridge and the serving splice read them the same way::
+A model is ``n_periods`` copies of a period of layers plus a remainder.
+Each layer's mixer is GQA attention or, for family ``ssm``, the Mamba-2
+mixer; a block whose ``mlp`` is empty (``d_ff`` 0, as mamba2-370m) has no
+FFN and never reads ``ln2``.  The parameter and cache trees keep the
+reference's layout exactly, so that the bridge and the serving splice read
+them the same way::
 
     params = {"embed": [V,d], "blocks": {str(p): tree[n_periods, ...]},
               "rem": {str(i): tree}, "final_norm": {"scale": [d]}}
-    caches = {"blocks": {str(p): {"k", "v": [n_periods,B,T,Hk,Dh]}},
-              "rem": {str(i): {"k", "v": [B,T,Hk,Dh]}}}
+    caches = {"blocks": {str(p): leaves[n_periods, B, ...]},
+              "rem": {str(i): leaves[B, ...]}}
+
+with cache leaves ``k``, ``v`` [B,T,Hk,Dh] in the model dtype for an
+attention layer, and ``conv`` [B,K-1,C] in the model dtype and ``ssd``
+[B,G,HG,P,N] in float32 for a Mamba-2 layer.
 
 The reference scans over the period axis; here a Python loop takes layer
 ``i`` as a view ``leaf[i]`` of each stacked leaf.  Decode writes the cache
@@ -19,7 +27,8 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.models import attention as attn_mod
-from repro_torch.models.layers import embed, mlp, rmsnorm
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.layers import Leaf, embed, mlp, rmsnorm
 
 F32 = torch.float32
 
@@ -29,19 +38,21 @@ def model_dtype(cfg) -> torch.dtype:
 
 
 def check_supported(cfg):
-    """The port's model covers dense global-attention SwiGLU configs;
-    raise for any feature a later slice brings."""
+    """The port's model covers dense global-attention SwiGLU configs and
+    attention-free Mamba-2 (family ``ssm``) configs; raise for any feature
+    a later slice brings."""
+    mixer = "ssm" if cfg.family == "ssm" else "attn"
     missing = [name for name, present in (
-        ("family " + cfg.family, cfg.family != "dense"),
-        ("non-attn layers", any(m != "attn" for m in cfg.layer_pattern)),
+        ("family " + cfg.family, cfg.family not in ("dense", "ssm")),
+        (f"non-{mixer} layers in a {cfg.family} model",
+         any(m != mixer for m in cfg.layer_pattern)),
         ("non-mlp blocks", any(m != "mlp" for m in cfg.mlp_pattern)),
         ("act " + cfg.act, cfg.act != "swiglu"),
         ("qkv_bias", cfg.qkv_bias),
         ("attn_logit_softcap", cfg.attn_logit_softcap is not None),
-        ("moe", cfg.moe is not None), ("ssm", cfg.ssm is not None),
+        ("moe", cfg.moe is not None),
         ("mla", cfg.mla is not None), ("encoder", cfg.encoder is not None),
-        ("frontend " + cfg.frontend, cfg.frontend != "none"),
-        ("d_ff 0", cfg.d_ff <= 0)) if present]
+        ("frontend " + cfg.frontend, cfg.frontend != "none")) if present]
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: the port does not support {', '.join(missing)} yet")
@@ -52,18 +63,24 @@ def check_supported(cfg):
 # ==========================================================================
 
 
-def _block_spec(cfg):
+def _block_spec(cfg, kind):
     d, hd = cfg.d_model, cfg.n_heads * cfg.d_head
     kvd = cfg.n_kv_heads * cfg.d_head
-    return {
-        "ln1": {"scale": ((d,), None)},
-        "ln2": {"scale": ((d,), None)},
-        "mixer": {"wq": ((d, hd), d ** -0.5), "wk": ((d, kvd), d ** -0.5),
-                  "wv": ((d, kvd), d ** -0.5), "wo": ((hd, d), hd ** -0.5)},
-        "mlp": {"w1": ((d, cfg.d_ff), d ** -0.5),
-                "w2": ((cfg.d_ff, d), cfg.d_ff ** -0.5),
-                "w3": ((d, cfg.d_ff), d ** -0.5)},
-    }
+    spec = {"ln1": {"scale": Leaf((d,))},
+            "ln2": {"scale": Leaf((d,))}}
+    if kind == "ssm":
+        spec["mixer"] = ssm_mod.mamba2_spec(d, cfg.ssm)
+    else:
+        spec["mixer"] = {"wq": Leaf((d, hd), d ** -0.5),
+                         "wk": Leaf((d, kvd), d ** -0.5),
+                         "wv": Leaf((d, kvd), d ** -0.5),
+                         "wo": Leaf((hd, d), hd ** -0.5)}
+    spec["mlp"] = {}    # attention-free SSM blocks (mamba2) have no FFN
+    if cfg.d_ff > 0:
+        spec["mlp"] = {"w1": Leaf((d, cfg.d_ff), d ** -0.5),
+                       "w2": Leaf((cfg.d_ff, d), cfg.d_ff ** -0.5),
+                       "w3": Leaf((d, cfg.d_ff), d ** -0.5)}
+    return spec
 
 
 def _tree_map(fn, spec):
@@ -82,43 +99,53 @@ def leaves(tree):
 
 
 def param_spec(cfg):
-    """The parameter tree as (shape, std) leaves; std None marks a norm
-    scale (ones), else a normal truncated at two std, as ``init_params``
-    of the reference draws it."""
+    """The parameter tree as :class:`~repro_torch.models.layers.Leaf`
+    leaves: shape, init kind and dtype, as ``init_params`` of the reference
+    makes each."""
     check_supported(cfg)
     d, V = cfg.d_model, cfg.vocab_size
-    spec = {"embed": ((V, d), d ** -0.5)}
+    spec = {"embed": Leaf((V, d), d ** -0.5)}
     spec["blocks"] = {
-        str(p): _tree_map(lambda leaf: ((cfg.n_periods,) + leaf[0], leaf[1]),
-                          _block_spec(cfg))
+        str(p): _tree_map(
+            lambda leaf: leaf._replace(shape=(cfg.n_periods,) + leaf.shape),
+            _block_spec(cfg, cfg.layer_pattern[p]))
         for p in range(cfg.period)}
-    spec["rem"] = {str(i): _block_spec(cfg) for i in range(cfg.n_remainder)}
-    spec["final_norm"] = {"scale": ((d,), None)}
+    spec["rem"] = {str(i): _block_spec(cfg, cfg.layer_pattern[i])
+                   for i in range(cfg.n_remainder)}
+    spec["final_norm"] = {"scale": Leaf((d,))}
     if not cfg.tie_embeddings:
-        spec["lm_head"] = ((d, V), d ** -0.5)
+        spec["lm_head"] = Leaf((d, V), d ** -0.5)
     return spec
+
+
+def leaf_dtype(leaf: Leaf, cfg, dtype=None) -> torch.dtype:
+    """float32 for an fp32 leaf, else ``dtype`` or the model dtype."""
+    return F32 if leaf.fp32 else dtype or model_dtype(cfg)
 
 
 def init_params(cfg, generator: torch.Generator, *, device="cuda",
                 dtype=None):
-    """Random parameters in the model dtype on ``device``.
+    """Random parameters on ``device``: each leaf in its spec dtype (the
+    model dtype, or ``dtype`` where given, except float32 leaves).
 
     The draws come from ``generator``, a CPU generator, and are moved to the
     device afterwards, so one seed gives the same weights on every device.
+    Only leaves with a ``std`` draw; the others are fixed, as in the
+    reference.
     """
     dev = resolve_device(device)
     if generator.device.type != "cpu":
         raise ValueError("init_params draws from a CPU torch.Generator")
-    dtype = dtype or model_dtype(cfg)
 
     def make(leaf):
-        shape, std = leaf
-        if std is None:
-            return torch.ones(shape, dtype=dtype, device=dev)
-        t = torch.empty(shape, dtype=F32)
-        torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0,
-                                    generator=generator)
-        return (t * std).to(device=dev, dtype=dtype)
+        if leaf.std is None:
+            t = leaf.fixed(leaf.shape)
+        else:
+            t = torch.empty(leaf.shape, dtype=F32)
+            torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0,
+                                        generator=generator)
+            t = t * leaf.std
+        return t.to(device=dev, dtype=leaf_dtype(leaf, cfg, dtype))
 
     return _tree_map(make, param_spec(cfg))
 
@@ -129,12 +156,14 @@ def _layer(tree, i):
 
 
 def _blocks(params, cfg):
-    """(block params, block key, period index) in layer order."""
+    """(block params, block key, period index, mixer kind) in layer
+    order."""
     for i in range(cfg.n_periods):
         for p in range(cfg.period):
-            yield _layer(params["blocks"][str(p)], i), str(p), i
+            yield (_layer(params["blocks"][str(p)], i), str(p), i,
+                   cfg.layer_pattern[p])
     for r in range(cfg.n_remainder):
-        yield params["rem"][str(r)], str(r), None
+        yield params["rem"][str(r)], str(r), None, cfg.layer_pattern[r]
 
 
 # ==========================================================================
@@ -142,22 +171,36 @@ def _blocks(params, cfg):
 # ==========================================================================
 
 
-def apply_block_full(bp, x, cfg, positions):
-    h = rmsnorm(bp["ln1"], x, cfg.norm_eps)
-    y, (k, v) = attn_mod.gqa_attention(bp["mixer"], h, cfg,
-                                       positions=positions)
-    x = x + y
-    h = rmsnorm(bp["ln2"], x, cfg.norm_eps)
-    return x + mlp(bp["mlp"], h, cfg.act), {"k": k, "v": v}
-
-
-def apply_block_decode(bp, x, cfg, cache, cache_len):
-    h = rmsnorm(bp["ln1"], x, cfg.norm_eps)
-    y, _, _ = attn_mod.gqa_decode(bp["mixer"], h, cfg, cache["k"],
-                                  cache["v"], cache_len)
-    x = x + y
+def _apply_mlp(bp, x, cfg):
+    if not bp["mlp"]:
+        return x    # no FFN (mamba2): ln2 is not read
     h = rmsnorm(bp["ln2"], x, cfg.norm_eps)
     return x + mlp(bp["mlp"], h, cfg.act)
+
+
+def apply_block_full(bp, x, cfg, kind, positions):
+    """Returns (x, cache entry of the layer, in the cache's dtypes)."""
+    h = rmsnorm(bp["ln1"], x, cfg.norm_eps)
+    dt = model_dtype(cfg)
+    if kind == "ssm":
+        y, (conv_tail, state) = ssm_mod.mamba2_forward(bp["mixer"], h, cfg)
+        cache = {"conv": conv_tail.to(dt), "ssd": state.to(F32)}
+    else:
+        y, (k, v) = attn_mod.gqa_attention(bp["mixer"], h, cfg,
+                                           positions=positions)
+        cache = {"k": k.to(dt), "v": v.to(dt)}
+    return _apply_mlp(bp, x + y, cfg), cache
+
+
+def apply_block_decode(bp, x, cfg, kind, cache, cache_len):
+    h = rmsnorm(bp["ln1"], x, cfg.norm_eps)
+    if kind == "ssm":
+        y, _, _ = ssm_mod.mamba2_decode(bp["mixer"], h, cfg, cache["conv"],
+                                        cache["ssd"])
+    else:
+        y, _, _ = attn_mod.gqa_decode(bp["mixer"], h, cfg, cache["k"],
+                                      cache["v"], cache_len)
+    return _apply_mlp(bp, x + y, cfg)
 
 
 def input_embeddings(params, cfg, tokens):
@@ -170,13 +213,11 @@ def forward_hidden(params, cfg, tokens, *, want_cache=False):
     check_supported(cfg)
     x = input_embeddings(params, cfg, tokens)
     positions = torch.arange(x.shape[1], device=x.device)
-    dt = model_dtype(cfg)
     stacked = {str(p): [] for p in range(cfg.period)}
     rem = {}
-    for bp, key, i in _blocks(params, cfg):
-        x, c = apply_block_full(bp, x, cfg, positions)
+    for bp, key, i, kind in _blocks(params, cfg):
+        x, c = apply_block_full(bp, x, cfg, kind, positions)
         if want_cache:
-            c = {n: t.to(dt) for n, t in c.items()}
             if i is None:
                 rem[key] = c
             else:
@@ -207,30 +248,44 @@ def prefill(params, cfg, tokens):
 
 def decode_step(params, cfg, token, caches, cache_len):
     """One decode step.  token [B,1]; cache_len an int or a per-row [B]
-    tensor.  Writes the new k, v into ``caches`` in place and returns
-    (logits [B,V] fp32, caches)."""
+    tensor (read by attention layers only).  Writes the new k, v (or conv
+    and ssd states) into ``caches`` in place and returns (logits [B,V]
+    fp32, caches)."""
     check_supported(cfg)
     x = embed(params["embed"], token, cfg.embed_scale)
-    for bp, key, i in _blocks(params, cfg):
+    for bp, key, i, kind in _blocks(params, cfg):
         if i is None:
             c = caches["rem"][key]
         else:
             c = {n: t[i] for n, t in caches["blocks"][key].items()}
-        x = apply_block_decode(bp, x, cfg, c, cache_len)
+        x = apply_block_decode(bp, x, cfg, kind, c, cache_len)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return logits_last(params, cfg, x), caches
 
 
-def init_cache(cfg, B: int, T: int, *, device):
-    """Zero caches with capacity T, in the model dtype."""
-    check_supported(cfg)
+def _block_cache(cfg, kind, lead, B, T, device):
     dt = model_dtype(cfg)
-    shape = (B, T, cfg.n_kv_heads, cfg.d_head)
+    if kind == "ssm":
+        spec = cfg.ssm
+        ch = spec.d_inner(cfg.d_model) + 2 * spec.n_groups * spec.d_state
+        H = spec.n_heads(cfg.d_model)
+        return {"conv": torch.zeros(lead + (B, spec.d_conv - 1, ch),
+                                    dtype=dt, device=device),
+                "ssd": torch.zeros(lead + (B, spec.n_groups,
+                                           H // spec.n_groups,
+                                           spec.head_dim, spec.d_state),
+                                   dtype=F32, device=device)}
+    shape = lead + (B, T, cfg.n_kv_heads, cfg.d_head)
+    return {n: torch.zeros(shape, dtype=dt, device=device) for n in ("k", "v")}
 
-    def zeros(lead):
-        return {n: torch.zeros(lead + shape, dtype=dt, device=device)
-                for n in ("k", "v")}
 
-    return {"blocks": {str(p): zeros((cfg.n_periods,))
+def init_cache(cfg, B: int, T: int, *, device):
+    """Zero caches with capacity T (attention) for B rows, per layer kind
+    as the reference's ``init_cache``."""
+    check_supported(cfg)
+    return {"blocks": {str(p): _block_cache(cfg, cfg.layer_pattern[p],
+                                            (cfg.n_periods,), B, T, device)
                        for p in range(cfg.period)},
-            "rem": {str(i): zeros(()) for i in range(cfg.n_remainder)}}
+            "rem": {str(i): _block_cache(cfg, cfg.layer_pattern[i], (), B, T,
+                                         device)
+                    for i in range(cfg.n_remainder)}}

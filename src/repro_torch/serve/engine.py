@@ -25,6 +25,9 @@ from repro_torch.models.transformer import leaves
 from repro_torch.monitor import publish_step_utilization
 from repro_torch.roofline import hw
 
+# cache leaves with a time axis; the others (conv, ssd) are per-row states
+TIME_AXIS_LEAVES = ("k", "v")
+
 
 @dataclasses.dataclass
 class Request:
@@ -106,9 +109,12 @@ class ServeEngine:
     # ------------------------------------------------------------------
     def _prefill_one(self, req: Request, caches, slot: int):
         """Prefill one request and splice its cache rows into slot ``slot``
-        (padded with zeros on the time axis).  Returns (prompt_len,
+        by leaf name, as the reference does: ``k`` and ``v`` fill the time
+        axis up to the prompt length and are zeroed past it; ``conv`` and
+        ``ssd`` states are copied whole.  Returns (prompt_len,
         first_token): the first generated token comes from the prefill
-        logits."""
+        logits (re-feeding the last prompt token through decode would
+        update SSM states twice)."""
         tokens = torch.as_tensor(np.asarray(req.prompt, np.int64),
                                  device=self.device)[None]
         logits, new = model_lib.prefill(self.params, self.cfg, tokens)
@@ -118,10 +124,13 @@ class ServeEngine:
             b_ax = 1 if part == "blocks" else 0
             for key, entry in new[part].items():
                 for name, src in entry.items():
-                    dst = caches[part][key][name]
-                    row = dst.select(b_ax, slot)
-                    row.narrow(b_ax, S, row.shape[b_ax] - S).zero_()
-                    row.narrow(b_ax, 0, S).copy_(src.select(b_ax, 0))
+                    row = caches[part][key][name].select(b_ax, slot)
+                    src_row = src.select(b_ax, 0)
+                    if name in TIME_AXIS_LEAVES:
+                        # the time axis follows the batch axis
+                        row.narrow(b_ax, S, row.shape[b_ax] - S).zero_()
+                        row = row.narrow(b_ax, 0, S)
+                    row.copy_(src_row)
         return S, first_tok
 
     # ------------------------------------------------------------------

@@ -12,14 +12,37 @@ from repro.core import overload as jax_overload  # noqa: E402
 from repro.insights.rules import recommend_nppn as jax_recommend  # noqa: E402
 from repro.models import model as jax_model  # noqa: E402
 from repro.models.perf_flags import PerfFlags as JaxPerfFlags  # noqa: E402
-from repro_torch.configs import get_config, list_archs, reduced_config  # noqa: E402
+from repro_torch.configs import (ModelConfig, get_config, list_archs,  # noqa: E402
+                                 reduced_config)
 from repro_torch.core import overload  # noqa: E402
 from repro_torch.models import model as model_lib  # noqa: E402
 from repro_torch.models.perf_flags import PerfFlags  # noqa: E402
 
 
 def test_registered_archs():
-    assert list_archs() == ["llsc-100m"]
+    assert list_archs() == ["llsc-100m", "mamba2-370m"]
+
+
+@pytest.mark.parametrize("reduced", [False, True])
+def test_mamba2_config_equals_reference(reduced):
+    mine, ref = get_config("mamba2-370m"), jax_get_config("mamba2-370m")
+    if reduced:
+        mine, ref = reduced_config(mine), jax_reduced(ref)
+    assert dataclasses.asdict(mine) == dataclasses.asdict(ref)
+
+
+@pytest.mark.parametrize("variant", ["full", "reduced", "reduced_no_ffn"])
+def test_mamba2_param_count_and_flops_equal_reference(variant):
+    cfg, ref = get_config("mamba2-370m"), jax_get_config("mamba2-370m")
+    if variant != "full":
+        cfg, ref = reduced_config(cfg), jax_reduced(ref)
+    if variant == "reduced_no_ffn":
+        cfg = dataclasses.replace(cfg, d_ff=0, n_layers=2)
+        ref = dataclasses.replace(ref, d_ff=0, n_layers=2)
+    assert model_lib.count_params(cfg) == jax_model.count_params(ref)
+    for training in (False, True):
+        assert model_lib.model_flops(cfg, 7, training=training) == \
+            jax_model.model_flops(ref, 7, training=training)
 
 
 @pytest.mark.parametrize("reduced", [False, True])
@@ -44,6 +67,26 @@ def test_unsupported_features_raise():
     cfg = dataclasses.replace(get_config("llsc-100m"), qkv_bias=True)
     with pytest.raises(NotImplementedError, match="qkv_bias"):
         model_lib.count_params(cfg)
+
+
+@pytest.mark.parametrize("arch,change,match", [
+    ("jamba-1.5-large-398b", {}, "family hybrid"),
+    ("mamba2-370m", {"layer_pattern": ("ssm", "attn"),
+                     "mlp_pattern": ("mlp", "mlp")}, "non-ssm layers"),
+    ("llsc-100m", {"layer_pattern": ("attn", "attn_local"), "attn_window": 8,
+                   "mlp_pattern": ("mlp", "mlp")}, "non-attn layers"),
+    ("qwen3-moe-30b-a3b", {}, "moe"),
+    ("minicpm3-4b", {}, "mla"),
+    ("whisper-base", {}, "encoder"),
+])
+def test_unsupported_mixes_raise(arch, change, match):
+    """Hybrid attention+SSM, local attention, MoE, MLA and encoders stay
+    unsupported."""
+    cfg = dataclasses.replace(jax_get_config(arch), **change)
+    mine = ModelConfig(**{f.name: getattr(cfg, f.name)
+                          for f in dataclasses.fields(cfg)})
+    with pytest.raises(NotImplementedError, match=match):
+        model_lib.count_params(mine)
 
 
 def test_perf_flags_copy():

@@ -4,7 +4,8 @@ the card.  Marked ``cuda``: they skip where CUDA is absent.  On the card:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_kernels.py
 
 Tolerances are the reference's (tests/test_kernels.py): 2e-5 in float32,
-2e-2 in bfloat16.
+2e-2 in bfloat16; 2e-4 for the SSD intra-chunk block, computed in float32
+from either input dtype, whose sums run in another order.
 """
 import pytest
 
@@ -13,6 +14,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import rmsnorm as rn  # noqa: E402
+from repro_torch.kernels import ssd  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -104,3 +106,122 @@ def test_kernels_refuse_what_they_do_not_take(dev):
     x = torch.randn(8, 64, device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="dtype"):       # fp32 scale
         ops.rmsnorm(x, torch.ones(64, device=dev))
+
+
+# The reference's shape, then mamba2-370m's decode (4 slots) and prefill
+# (320 tokens) rows of 2048.
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(4, 16, 128), (4, 1, 2048), (1, 320, 2048),
+                                   (3, 1000), (7, 64), (2, 4096)])
+def test_gated_rmsnorm_kernel_matches_plain(dev, shape, dtype):
+    g = torch.Generator(device=dev).manual_seed(sum(shape))
+    y = torch.randn(shape, device=dev, generator=g).to(dtype)
+    z = torch.randn(shape, device=dev, generator=g).to(dtype)
+    s = (torch.randn(shape[-1], device=dev, generator=g) * 0.1 + 1.0).to(dtype)
+    got = rn.gated_rmsnorm(y, z, s)
+    torch.cuda.synchronize()
+    _close(got, ref.gated_rmsnorm_ref(y, z, s), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_gated_rmsnorm_reads_a_strided_gate(dev, dtype):
+    """The gate as the model has it: a slice of the input projection."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    proj = torch.randn(4, 5, 2 * 2048 + 288, device=dev, generator=g).to(dtype)
+    y = torch.randn(4, 5, 2048, device=dev, generator=g).to(dtype)
+    z = proj[..., :2048]
+    s = torch.ones(2048, device=dev, dtype=dtype)
+    got = rn.gated_rmsnorm(y, z, s)
+    torch.cuda.synchronize()
+    _close(got, ref.gated_rmsnorm_ref(y, z, s), dtype)
+    _close(rn.gated_rmsnorm(y[:, :1], z[:, -1:], s),
+           ref.gated_rmsnorm_ref(y[:, :1], z[:, -1:], s), dtype)
+
+
+def _ssd_inputs(dev, N, l, h, p, g, n, dtype, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, device=dev, generator=gen)
+
+    x = randn(N, l, h, p).to(dtype)
+    dt = torch.nn.functional.softplus(randn(N, l, h))
+    A = -torch.exp(randn(h) * 0.3)
+    B, C = randn(N, l, g, n).to(dtype), randn(N, l, g, n).to(dtype)
+    return x, dt, A, B, C
+
+
+# The sweep of tests/test_kernels.py, a ragged chunk, then mamba2-370m's
+# two chunks of a 320-token prefill (the second padded).
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("N,l,h,p,g,n", [
+    (1, 32, 4, 16, 1, 8), (2, 64, 8, 32, 2, 16), (1, 16, 2, 8, 2, 4),
+    (3, 40, 4, 64, 1, 128), (2, 256, 32, 64, 1, 128)])
+def test_ssd_kernel_matches_plain(dev, N, l, h, p, g, n, dtype):
+    x, dt, A, B, C = _ssd_inputs(dev, N, l, h, p, g, n, dtype, seed=l + h)
+    for out_dtype in {torch.float32, dtype}:
+        got = ssd.ssd_intra_chunk(x, dt, A, B, C, out_dtype=out_dtype)
+        want = ref.ssd_intra_chunk_ref(x, dt, A, B, C, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        assert got.dtype == out_dtype
+        tol = 2e-4 if out_dtype == torch.float32 else 2e-2
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+
+
+def test_ssd_kernel_reads_strided_views_and_selects_the_mask(dev):
+    """x, B, C as slices of one buffer, as the model's conv output is; and
+    decays so steep that exp above the diagonal is inf: no NaN."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    buf = torch.randn(2, 64, 4 * 16 + 2 * 8, device=dev, generator=gen)
+    x = buf[..., :64].reshape(2, 64, 4, 16)
+    B = buf[..., 64:72].reshape(2, 64, 1, 8)
+    C = buf[..., 72:].reshape(2, 64, 1, 8)
+    dt = torch.full((2, 64, 4), 50.0, device=dev)
+    A = -torch.arange(1, 5, device=dev, dtype=torch.float32)
+    got = ssd.ssd_intra_chunk(x, dt, A, B, C)
+    want = ref.ssd_intra_chunk_ref(x, dt, A, B, C)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
+def test_mamba_kernels_route_and_count(dev, monkeypatch):
+    def plain(*_a, **_k):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(ref, "gated_rmsnorm_ref", plain)
+    monkeypatch.setattr(ref, "ssd_intra_chunk_ref", plain)
+    n_g, n_s = rn.gated_launches, ssd.launches
+    y = torch.randn(4, 64, device=dev)
+    ops.gated_rmsnorm(y, y, torch.ones(64, device=dev))
+    ops.ssd_intra_chunk(*_ssd_inputs(dev, 1, 32, 4, 16, 1, 8, torch.float32))
+    torch.cuda.synchronize()
+    assert (rn.gated_launches - n_g, ssd.launches - n_s) == (1, 1)
+
+
+def test_mamba_kernels_refuse_what_they_do_not_take(dev):
+    y = torch.randn(4, 64, device=dev)
+    with pytest.raises(ValueError, match="dtype"):          # mixed dtypes
+        ops.gated_rmsnorm(y, y.to(torch.bfloat16), torch.ones(64, device=dev))
+    with pytest.raises(ValueError, match="contiguous"):     # strided columns
+        ops.gated_rmsnorm(y[:, ::2], y[:, ::2], torch.ones(32, device=dev))
+    wide = torch.randn(2, 4097, device=dev)
+    with pytest.raises(ValueError, match="at most 4096"):   # too wide a row
+        ops.gated_rmsnorm(wide, wide, torch.ones(4097, device=dev))
+    x, dt, A, B, C = _ssd_inputs(dev, 1, 32, 4, 16, 1, 8, torch.float32)
+    with pytest.raises(ValueError, match="float32"):        # bf16 dt
+        ops.ssd_intra_chunk(x, dt.to(torch.bfloat16), A, B, C)
+    with pytest.raises(ValueError, match="dtype"):          # B in bf16
+        ops.ssd_intra_chunk(x, dt, A, B.to(torch.bfloat16), C)
+    with pytest.raises(ValueError, match="out_dtype"):      # fp32 x, bf16 y
+        ops.ssd_intra_chunk(x, dt, A, B, C, out_dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="groups"):         # 4 heads, 3 groups
+        xg, dtg, Ag, Bg, Cg = _ssd_inputs(dev, 1, 32, 4, 16, 3, 8,
+                                          torch.float32)
+        ops.ssd_intra_chunk(xg, dtg, Ag, Bg, Cg)
+    with pytest.raises(ValueError, match="head dim"):       # p = 256
+        ops.ssd_intra_chunk(*_ssd_inputs(dev, 1, 8, 2, 256, 1, 8,
+                                         torch.float32))
+    with pytest.raises(ValueError, match="CUDA"):           # dt on the CPU
+        ops.ssd_intra_chunk(x, dt.cpu(), A, B, C)

@@ -67,7 +67,7 @@ def test_no_triton_and_no_library_kernels_in_the_package():
     for path in PKG.rglob("*.py"):
         text = path.read_text()
         for word in ("triton", "scaled_dot_product_attention", "rms_norm(",
-                     "torch.compile"):
+                     "torch.compile", "conv1d"):
             assert word not in text, f"{path} mentions {word}"
 
 
@@ -107,3 +107,15 @@ def test_launcher_exit_codes(capsys):
     assert rc == 0
     out = capsys.readouterr().out
     assert "2 requests" in out and "Overload controller" in out
+
+
+def test_launcher_serves_mamba2_on_the_cpu(capsys):
+    from repro_torch.launch import serve as launch_serve
+
+    rc = launch_serve.main(["--arch", "mamba2-370m", "--reduced", "--device",
+                            "cpu", "--requests", "3", "--slots", "2",
+                            "--prompt-len", "20", "--max-new", "4",
+                            "--peak-flops", "1e12", "--mem-total-gb", "16"])
+    assert rc == 0
+    out = capsys.readouterr().out
+    assert "[serve:mamba2-370m-reduced] 3 requests, 12 tokens" in out

@@ -3,7 +3,8 @@ package's Pallas kernels (interpret mode) and oracles, the CPU routing of
 ``kernels.ops``, the wrappers' refusals, and the nvcc build recipe.
 
 Tolerances are the reference's own (tests/test_kernels.py): 2e-5 in
-float32, 2e-2 in bfloat16.
+float32, 2e-2 in bfloat16 for the norms and attention; 2e-4 for the SSD
+intra-chunk block (float32), whose sums run in another order.
 """
 import numpy as np
 import pytest
@@ -15,11 +16,15 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels import ops as jax_ops  # noqa: E402
 from repro.kernels import ref as jax_ref  # noqa: E402
 from repro.kernels.flash_attention import flash_attention as jax_flash  # noqa: E402
+from repro.kernels.rmsnorm import gated_rmsnorm as jax_gated  # noqa: E402
 from repro.kernels.rmsnorm import rmsnorm as jax_rmsnorm  # noqa: E402
+from repro.kernels.ssd import ssd_intra_chunk as jax_ssd  # noqa: E402
+from repro.models import ssm as jax_ssm  # noqa: E402
 from repro.models import layers as jax_layers  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import rmsnorm as rn  # noqa: E402
+from repro_torch.kernels import ssd  # noqa: E402
 from repro_torch.models import layers  # noqa: E402
 
 DTYPES = {"float32": (torch.float32, jnp.float32),
@@ -104,6 +109,89 @@ def test_rmsnorm_plain_matches_pallas_kernel(rows, d, name):
     np.testing.assert_allclose(_np(mine), _np(oracle), **_tol(name))
 
 
+# The reference's shape (tests/test_kernels.py), then mamba2-370m's decode
+# step (4 slots) and a 320-token prefill.
+GATED_CASES = [(4, 16, 128), (4, 1, 2048), (1, 320, 2048)]
+
+
+@pytest.mark.parametrize("name", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", GATED_CASES)
+def test_gated_rmsnorm_plain_matches_pallas_kernel(shape, name):
+    rng = np.random.default_rng(sum(shape))
+    ty, jy = _pair(rng, shape, name)
+    tz, jz = _pair(rng, shape, name)
+    ts, js = _pair(rng, shape[-1:], name, scale=0.1, shift=1.0)
+    mine = ops.gated_rmsnorm(ty, tz, ts)
+    kern = jax_gated(jy, jz, js, interpret=True)
+    oracle = jax_ref.gated_rmsnorm_ref(jy, jz, js)
+    assert mine.dtype == DTYPES[name][0] and mine.shape == shape
+    np.testing.assert_allclose(_np(mine), _np(kern), **_tol(name))
+    np.testing.assert_allclose(_np(mine), _np(oracle), **_tol(name))
+
+
+def test_gated_rmsnorm_takes_a_strided_gate():
+    """The model's gate is a slice of the projection: the plain version
+    reads it as it is, with the same result as a contiguous copy."""
+    proj = torch.randn(2, 5, 3 * 64)
+    y = torch.randn(2, 5, 64)
+    z = proj[..., 64:128]
+    s = torch.rand(64) + 0.5
+    assert not z.is_contiguous()
+    torch.testing.assert_close(ops.gated_rmsnorm(y, z, s),
+                               ops.gated_rmsnorm(y, z.contiguous(), s),
+                               rtol=0, atol=0)
+
+
+def _ssd_data(b, l, h, p, g, n, seed=0):
+    """numpy x, dt, A, B, C drawn as tests/test_kernels.py draws them."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, l, h, p), dtype=np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((b, l, h), dtype=np.float32)))
+    A = -np.exp(rng.standard_normal(h, dtype=np.float32) * 0.3)
+    B = rng.standard_normal((b, l, g, n), dtype=np.float32)
+    C = rng.standard_normal((b, l, g, n), dtype=np.float32)
+    return [a.astype(np.float32) for a in (x, dt, A, B, C)]
+
+
+# The sweep of tests/test_kernels.py:76-80.
+SSD_CASES = [(1, 32, 4, 16, 1, 8), (2, 64, 8, 32, 2, 16), (1, 16, 2, 8, 2, 4)]
+
+
+@pytest.mark.parametrize("b,l,h,p,g,n", SSD_CASES)
+def test_ssd_plain_matches_pallas_kernel(b, l, h, p, g, n):
+    data = _ssd_data(b, l, h, p, g, n)
+    mine = ops.ssd_intra_chunk(*[torch.from_numpy(a) for a in data])
+    kern = jax_ssd(*[jnp.asarray(a) for a in data], interpret=True)
+    oracle = jax_ref.ssd_intra_chunk_ref(*[jnp.asarray(a) for a in data])
+    assert mine.dtype == torch.float32 and mine.shape == (b, l, h, p)
+    np.testing.assert_allclose(_np(mine), _np(kern), rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(_np(mine), _np(oracle), rtol=2e-4, atol=2e-4)
+
+
+def test_ssd_plain_matches_model_path():
+    """The plain y_diag equals the chunked model path with one chunk (the
+    whole sequence), where the output is the intra-chunk term alone: the
+    counterpart of test_ssd_kernel_matches_model_path."""
+    data = _ssd_data(1, 32, 4, 16, 1, 8, seed=1)
+    mine = ops.ssd_intra_chunk(*[torch.from_numpy(a) for a in data])
+    y_model, _ = jax_ssm.ssd_chunked(*[jnp.asarray(a) for a in data], chunk=32)
+    np.testing.assert_allclose(_np(mine), _np(y_model), rtol=2e-4, atol=2e-4)
+
+
+def test_ssd_plain_output_dtype_and_masking():
+    """x's dtype by default, float32 on request; rows above the diagonal,
+    where exp(cs_i - cs_j) overflows, are selected away (no NaN)."""
+    x, dt, A, B, C = [torch.from_numpy(a) for a in
+                      _ssd_data(1, 64, 2, 8, 1, 4, seed=2)]
+    dt = dt * 50                     # cs spans thousands: exp(+) is inf
+    y = ops.ssd_intra_chunk(x, dt, A * 10, B, C)
+    assert torch.isfinite(y).all()
+    xb, Bb, Cb = (t.to(torch.bfloat16) for t in (x, B, C))
+    assert ops.ssd_intra_chunk(xb, dt, A, Bb, Cb).dtype == torch.bfloat16
+    y32 = ops.ssd_intra_chunk(xb, dt, A, Bb, Cb, out_dtype=torch.float32)
+    assert y32.dtype == torch.float32
+
+
 @pytest.mark.parametrize("name", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape", [(2, 5, 64), (4, 1, 768)])
 def test_layers_rmsnorm_matches_jax_layers(shape, name):
@@ -140,6 +228,32 @@ def test_cpu_tensors_take_the_plain_route_and_launch_nothing(monkeypatch):
     ops.flash_attention_bshd(q, q, q)
     ops.rmsnorm(q, torch.ones(32))
     assert (fa.launches, rn.launches) == before
+
+
+def test_cpu_tensors_take_the_plain_route_for_the_mamba_kernels(
+        monkeypatch):
+    def no_build(*_a, **_k):
+        raise AssertionError("a CPU tensor must not build or launch a kernel")
+
+    monkeypatch.setattr(_build, "build", no_build)
+    monkeypatch.setattr(_build, "load", no_build)
+    before = (rn.gated_launches, ssd.launches)
+    y = torch.randn(3, 16)
+    ops.gated_rmsnorm(y, y, torch.ones(16))
+    x, dt, A, B, C = [torch.from_numpy(a) for a in
+                      _ssd_data(1, 16, 2, 8, 2, 4)]
+    ops.ssd_intra_chunk(x, dt, A, B, C)
+    assert (rn.gated_launches, ssd.launches) == before
+
+
+def test_mamba_wrappers_refuse_cpu_tensors():
+    y = torch.randn(3, 16)
+    with pytest.raises(ValueError, match="not a CUDA tensor"):
+        rn.gated_rmsnorm(y, y, torch.ones(16))
+    x, dt, A, B, C = [torch.from_numpy(a) for a in
+                      _ssd_data(1, 16, 2, 8, 2, 4)]
+    with pytest.raises(ValueError, match="not a CUDA tensor"):
+        ssd.ssd_intra_chunk(x, dt, A, B, C)
 
 
 def test_wrappers_refuse_cpu_tensors():

@@ -169,9 +169,9 @@ def test_init_params_is_seeded_and_shaped():
     b = model_lib.init_params(cfg, torch.Generator().manual_seed(3),
                               device="cpu")
     spec = tf.param_spec(cfg)
-    for (shape, std), x, y in zip(tf.leaves(spec), tf.leaves(a), tf.leaves(b)):
-        assert tuple(x.shape) == shape and torch.equal(x, y)
-        if std is None:
-            assert torch.equal(x, torch.ones(shape))
+    for leaf, x, y in zip(tf.leaves(spec), tf.leaves(a), tf.leaves(b)):
+        assert tuple(x.shape) == leaf.shape and torch.equal(x, y)
+        if leaf.std is None:
+            assert torch.equal(x, torch.ones(leaf.shape))
         else:
-            assert float(x.abs().max()) <= 2 * std + 1e-6
+            assert float(x.abs().max()) <= 2 * leaf.std + 1e-6

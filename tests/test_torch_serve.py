@@ -1,7 +1,8 @@
-"""The port's ServeEngine against the JAX package's on reduced llsc-100m,
-fp32, greedy, with the same bridged weights: 6 requests of ragged prompt
-and output lengths through 2 slots give identical completions, token for
-token, and the engine publishes to the port's LLload registry."""
+"""The port's ServeEngine against the JAX package's on reduced llsc-100m
+and reduced mamba2-370m, fp32, greedy, with the same bridged weights:
+requests of ragged prompt and output lengths through 2 slots give
+identical completions, token for token, and the engine publishes to the
+port's LLload registry."""
 import jax
 import numpy as np
 import pytest
@@ -95,6 +96,41 @@ def test_slots_that_fill_their_cache_match_jax(weights):
     mine = {c.request_id: c.tokens for c in eng.completions}
     assert mine == theirs
     assert len(mine[0]) == 16 - 10 + 1      # stopped by the full cache
+
+
+@pytest.fixture(scope="module")
+def mamba_weights():
+    jcfg = jax_reduced("mamba2-370m")
+    cfg = reduced_config("mamba2-370m")
+    jparams = jax_init(jcfg, jax.random.PRNGKey(0))
+    params = from_jax_params(jax.tree.map(np.asarray, jparams), cfg, "cpu")
+    return jcfg, cfg, jparams, params
+
+
+def test_mamba_completions_identical_to_jax(mamba_weights):
+    """Prompts of 2 tokens (shorter than the conv), 10 tokens and 40 tokens
+    (three chunks of 16) through 2 slots: each refill copies the conv and
+    ssd state rows whole into a slot another request used before."""
+    jcfg, cfg, jparams, params = mamba_weights
+    rng = np.random.default_rng(12)
+    lens = (2, 10, 40, 10, 2, 40)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in lens]
+    jeng = jax_engine.ServeEngine(jcfg, jparams, jax_engine.EngineConfig(
+        slots=2, max_seq_len=64, monitor=False))
+    eng = engine.ServeEngine(cfg, params, engine.EngineConfig(
+        slots=2, max_seq_len=64, device="cpu", monitor=False))
+    for i, prompt in enumerate(prompts):
+        jeng.submit(jax_engine.Request(i, prompt, max_new_tokens=5 + i % 3))
+        eng.submit(engine.Request(i, prompt, max_new_tokens=5 + i % 3))
+    jeng.run()
+    stats = eng.run()
+    theirs = {c.request_id: c.tokens for c in jeng.completions}
+    mine = {c.request_id: c.tokens for c in eng.completions}
+    assert mine == theirs
+    assert stats["requests"] == len(lens)
+    assert [len(mine[i]) for i in range(len(lens))] == \
+        [5 + i % 3 for i in range(len(lens))]
 
 
 def test_cpu_engine_needs_device_figures(weights):
