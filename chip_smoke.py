@@ -14,10 +14,14 @@ It imports nothing of JAX or of the JAX package.  Phases:
    card on the test sweeps and at the main paths' shapes (tolerance 2e-5 in
    float32 and 2e-2 in bfloat16 for attention and the norms, 2e-4 for the
    SSD block, computed in float32 from either input dtype, as
-   |a - b| <= atol + rtol * |b|), then time kernel, plain version and the
-   library call where one exists (device time from torch.profiler's kernel
-   records, with the CUDA-event time of a call beside it) against the
-   data-sheet bound;
+   |a - b| <= atol + rtol * |b|), with a long sequence (S = T = 1024) for
+   flash attention; check that a bfloat16 flash input that is not 16-byte
+   aligned raises, and that each of the five kernel entry points raises
+   under autograd without launching; then time kernel, plain version and
+   the library call where one exists (device time from torch.profiler's
+   kernel records, with the CUDA-event time of a call beside it) against
+   the data-sheet bound: flash attention at S = 128 and 256, RMSNorm at
+   llsc-100m's rows of 768 and mamba2-370m's of 1024;
 4. serve llsc-100m at full width and depth in bfloat16 with
    ``flash_kernel`` on through ``ServeEngine``: 8 requests (prompts of 128
    and 256 tokens, 32 new tokens each) through 4 slots; the kernels'
@@ -26,10 +30,13 @@ It imports nothing of JAX or of the JAX package.  Phases:
    no gated norm or SSD launch;
 5. float32 logits of the card against the CPU over a prefill and 8 greedy
    decode steps of llsc-100m at full width (tolerance 1e-4, the same
-   tokens);
+   tokens); then the card once more with every RMSNorm on its scalar body
+   (inputs one element off 16-byte alignment), to show how much of the
+   error is the vector body's order of summation;
 6. the serve of 4 under ``torch.profiler``: device busy share (device time
-   over the span from the trace's first device activity to its last) and
-   the largest kernels;
+   over the span from the trace's first device activity to its last), the
+   device totals of the flash-attention and RMSNorm kernels, and the
+   largest kernels;
 7. serve mamba2-370m at full width and depth in bfloat16: 8 requests
    (prompts of 128 and 320 tokens: one padded chunk of 256, and two; 32 new
    tokens each) through 4 slots, ``max_seq_len`` 384; the counters read
@@ -38,7 +45,8 @@ It imports nothing of JAX or of the JAX package.  Phases:
 8. float32 logits of the card against the CPU over a 320-token prefill
    and 8 greedy decode steps of mamba2-370m at full width (tolerance 1e-4,
    the same tokens);
-9. the serve of 7 under ``torch.profiler``, as 6;
+9. the serve of 7 under ``torch.profiler``, as 6, with the totals of the
+   RMSNorm, gated RMSNorm and SSD kernels;
 10. one ``{"kernels": [...]}`` line (launches of flash and rmsnorm from 4,
     of the gated norm and SSD from 7), the nvidia-smi line, and last the
     ``{"ok": true, ...}`` line.
@@ -51,6 +59,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import platform
+import re
 import subprocess
 import sys
 import time
@@ -106,24 +115,30 @@ def device_activities(prof):
             if e.device_type == DeviceType.CUDA]
 
 
-def device_ms(fn, iters=100, warmup=10):
+def device_ms(fn, iters=100, warmup=10, tries=3):
     """Mean device time of one call: the summed durations of the device
     activities that ``iters`` calls launch, from a torch.profiler trace.
-    Returns (ms, device activities per call)."""
+    A trace whose activity count is not a whole multiple of ``iters`` has
+    lost records, and is taken again.  Returns (ms, device activities per
+    call)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
+    for _ in range(tries):
         torch.cuda.synchronize()
-    acts = device_activities(prof)
-    check(acts, "the profiler recorded no device activity")
-    return sum(a[1] for a in acts) / iters / 1e3, len(acts) / iters
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        acts = device_activities(prof)
+        if acts and len(acts) % iters == 0:
+            return sum(a[1] for a in acts) / iters / 1e3, len(acts) / iters
+        print(f"  (the trace holds {len(acts)} device activities for "
+              f"{iters} calls: records were lost; tracing again)")
+    raise RuntimeError(f"chip_smoke: {tries} traces in a row lost records")
 
 
 def timed(label, fns):
@@ -156,12 +171,59 @@ def compare(name, got, want, dtype_name, tol=None):
     return m
 
 
+def raises(fn, exc, text):
+    """The message of the ``exc`` that ``fn()`` raises; fails unless it
+    raises one whose message holds ``text``."""
+    try:
+        fn()
+    except exc as e:
+        check(text in str(e), f"unexpected error: {e}")
+        return str(e)
+    raise RuntimeError(f"chip_smoke: expected {exc.__name__} ({text})")
+
+
+def check_refusals(torch, fa, rn, randn):
+    """A bfloat16 flash input off 16-byte alignment raises; so does each of
+    the five kernel entry points, through ``kernels.ops``, under autograd;
+    and none of them launches."""
+    from repro_torch.kernels import ops, ssd
+
+    def counts():
+        return (fa.launches, rn.launches, rn.gated_launches, ssd.launches)
+
+    before = counts()
+    q = randn(1, 2, 64 * 64 + 1, dtype=torch.bfloat16)[..., 1:]
+    msg = raises(lambda: fa.flash_attention(*[q.view(1, 2, 64, 64)] * 3),
+                 ValueError, "aligned")
+    print(f"  flash bf16 at an odd element offset raises: {msg}")
+
+    def grad(*shape):
+        return randn(*shape, dtype=torch.float32).requires_grad_()
+
+    calls = {
+        "flash_attention": lambda: ops.flash_attention(
+            grad(1, 2, 64, 64), randn(1, 2, 64, 64), randn(1, 2, 64, 64)),
+        "flash_attention_bshd": lambda: ops.flash_attention_bshd(
+            randn(1, 64, 2, 64), grad(1, 64, 2, 64), randn(1, 64, 2, 64)),
+        "rmsnorm": lambda: ops.rmsnorm(randn(4, 64), grad(64)),
+        "gated_rmsnorm": lambda: ops.gated_rmsnorm(
+            randn(4, 64), grad(4, 64), randn(64)),
+        "ssd_intra_chunk": lambda: ops.ssd_intra_chunk(
+            randn(1, 16, 2, 8), randn(1, 16, 2).abs(), -randn(2).abs(),
+            grad(1, 16, 1, 4), randn(1, 16, 1, 4)),
+    }
+    for name, call in calls.items():
+        raises(call, RuntimeError, "no backward")
+    check(counts() == before, "a refused call launched a kernel")
+    print(f"  under autograd {', '.join(calls)} raise; no launch")
+
+
 def phase_kernels(torch, fa, rn, ref, hw):
     """Phase 3: kernels against plain versions, then timings."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
 
-    def randn(*shape, dtype):
+    def randn(*shape, dtype=torch.float32):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
     errs = {"flash_attention": {}, "rmsnorm": {}}
@@ -169,8 +231,12 @@ def phase_kernels(torch, fa, rn, ref, hw):
         (1, 2, 1, 128, 64, True), (2, 4, 2, 128, 32, True),
         (1, 4, 4, 256, 64, True), (2, 8, 2, 64, 128, True),
         (1, 2, 2, 128, 32, False), (1, 12, 12, 128, 64, True),
-        (1, 12, 12, 256, 64, True), (2, 4, 2, 100, 64, True)]
-    rms_cases = [(32, 128), (33, 256), (7, 64), (4, 768), (256, 768)]
+        (1, 12, 12, 256, 64, True), (2, 4, 2, 100, 64, True),
+        (1, 12, 12, 1024, 64, True), (1, 8, 2, 320, 128, True),
+        (1, 4, 2, 16, 64, True), (1, 4, 2, 1, 64, True)]
+    # llsc-100m's and mamba2-370m's rows, then widths of the scalar body
+    rms_cases = [(32, 128), (33, 256), (7, 64), (4, 768), (256, 768),
+                 (4, 1024), (320, 1024), (5, 100), (3, 101)]
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[1]
         for B, H, Hk, S, D, causal in flash_cases:
@@ -194,41 +260,52 @@ def phase_kernels(torch, fa, rn, ref, hw):
             errs["rmsnorm"][(dn, rows, d)] = compare(
                 f"rmsnorm {dn} rows{rows} D{d}", rn.rmsnorm(x, s),
                 ref.rmsnorm_ref(x, s), dn)
+        # rows one element off 16-byte alignment take the scalar body
+        x = randn(4 * 768 + 1, dtype=dtype)[1:].view(4, 768)
+        s = (randn(768, dtype=torch.float32) * 0.1 + 1.0).to(dtype)
+        compare(f"rmsnorm {dn} rows4 D768 at an odd element offset",
+                rn.rmsnorm(x, s), ref.rmsnorm_ref(x, s), dn)
+    check_refusals(torch, fa, rn, randn)
 
-    # Timings at the main path's shapes, bf16: a 256-token prefill's
-    # attention, and a decode step's norm over 4 slots (2 in 3 norm launches
-    # of the serve are decode steps) beside a 256-token prefill's.
+    # Timings at the main paths' shapes, bf16: the attention of llsc-100m's
+    # prefills of 128 and 256 tokens, and a norm over a decode step's 4
+    # slots (2 in 3 norm launches of the serve) beside a prefill's rows, at
+    # llsc-100m's width (768) and mamba2-370m's (1024).  The kernels line
+    # keeps S = 256 and 4 rows of 768.
     F = torch.nn.functional
     rows = []
     bf16 = torch.bfloat16
-    B, S, H, D = 1, 256, 12, 64
-    q, k, v = (randn(B, S, H, D, dtype=bf16) for _ in range(3))
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    n_bytes = 4 * B * S * H * D * 2
-    flops = 4 * B * H * D * (S * (S + 1) // 2)    # unmasked (i, j <= i) pairs
-    bound, by = hw.bound_s(n_bytes, flops, bf16)
-    t = timed(f"flash bf16 B{B} S{S} H{H} D{D} causal (library: sdpa)", dict(
-        ms=lambda: fa.flash_attention_bshd(q, k, v),
-        plain_ms=lambda: ref.attention_ref(qt, kt, vt),
-        library_ms=lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                                          is_causal=True)))
-    print(f"  bound {bound * 1e3:.6f} ms ({by}: {n_bytes} B, {flops} FLOP)")
+    B, H, D = 1, 12, 64
+    for S in (128, 256):
+        q, k, v = (randn(B, S, H, D, dtype=bf16) for _ in range(3))
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        n_bytes = 4 * B * S * H * D * 2
+        flops = 4 * B * H * D * (S * (S + 1) // 2)  # unmasked (i, j <= i)
+        bound, by = hw.bound_s(n_bytes, flops, bf16)
+        t = timed(f"flash bf16 B{B} S{S} H{H} D{D} causal (library: sdpa)",
+                  dict(ms=lambda: fa.flash_attention_bshd(q, k, v),
+                       plain_ms=lambda: ref.attention_ref(qt, kt, vt),
+                       library_ms=lambda: F.scaled_dot_product_attention(
+                           qt, kt, vt, is_causal=True)))
+        print(f"  bound {bound * 1e3:.6f} ms ({by}: {n_bytes} B, {flops} "
+              "FLOP)")
     rows.append(dict(name="flash_attention", route="cuda",
                      source="src/repro_torch/kernels/csrc/flash_attention.cu",
                      replaces="src/repro/kernels/flash_attention.py:27",
                      max_abs_err=errs["flash_attention"][
                          ("bfloat16", 1, 12, 256, 64, True)],
                      bound_ms=bound * 1e3, bound_by=by, **t))
-    for nrows in (256, 4):
-        x = randn(nrows, 768, dtype=bf16)
-        s = (randn(768, dtype=torch.float32) * 0.1 + 1.0).to(bf16)
-        n_bytes = 2 * nrows * 768 * 2 + 768 * 2
-        bound, by = hw.bound_s(n_bytes, 4 * nrows * 768, bf16)
-        t = timed(f"rmsnorm bf16 rows{nrows} D768 (library: F.rms_norm)", dict(
-            ms=lambda: rn.rmsnorm(x, s),
-            plain_ms=lambda: ref.rmsnorm_ref(x, s),
-            library_ms=lambda: F.rms_norm(x, (768,), s, 1e-5)))
-        print(f"  bound {bound * 1e3:.6f} ms ({by}: {n_bytes} B)")
+    for d, nrows_list in ((1024, (320, 4)), (768, (256, 4))):
+        for nrows in nrows_list:
+            x = randn(nrows, d, dtype=bf16)
+            s = (randn(d, dtype=torch.float32) * 0.1 + 1.0).to(bf16)
+            n_bytes = 2 * nrows * d * 2 + d * 2
+            bound, by = hw.bound_s(n_bytes, 4 * nrows * d, bf16)
+            t = timed(f"rmsnorm bf16 rows{nrows} D{d} (library: F.rms_norm)",
+                      dict(ms=lambda: rn.rmsnorm(x, s),
+                           plain_ms=lambda: ref.rmsnorm_ref(x, s),
+                           library_ms=lambda: F.rms_norm(x, (d,), s, 1e-5)))
+            print(f"  bound {bound * 1e3:.6f} ms ({by}: {n_bytes} B)")
     rows.append(dict(name="rmsnorm", route="cuda",
                      source="src/repro_torch/kernels/csrc/rmsnorm.cu",
                      replaces="src/repro/kernels/rmsnorm.py:19",
@@ -421,15 +498,20 @@ def _to(tree, dev):
     return tree.to(dev)
 
 
-def card_vs_cpu(torch, np, model_lib, perf, time_axis, cfg, S):
+def card_vs_cpu(torch, np, model_lib, perf, time_axis, cfg, S,
+                scalar_norm=False):
     """Phases 5 and 8: float32 logits of one seed's weights on the card and
     on the CPU over an S-token prefill and 8 greedy decode steps, each side
-    choosing its own tokens."""
+    choosing its own tokens.  With ``scalar_norm`` the card runs once more
+    with every RMSNorm input copied one element off 16-byte alignment, so
+    that the norm takes its scalar body instead of the vector one."""
+    from repro_torch.kernels import rmsnorm as rn
+
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     p_cpu = model_lib.init_params(cfg, torch.Generator().manual_seed(0),
                                   device="cpu", dtype=torch.float32)
-    f32 = {}
-    for dev in ("cuda", "cpu"):
+
+    def run(dev):
         p = _to(p_cpu, dev) if dev == "cuda" else p_cpu
         tokens = torch.as_tensor(
             np.random.default_rng(2).integers(0, cfg.vocab_size, (1, S)),
@@ -449,24 +531,56 @@ def card_vs_cpu(torch, np, model_lib, perf, time_axis, cfg, S):
                 tok = torch.argmax(logits, dim=-1)
                 logits, cache = model_lib.decode_step(p, cfg32, tok[:, None],
                                                       cache, S + step)
-        f32[dev] = logits_all
-        del p, cache
-    worst = 0.0
-    for i, (a, b) in enumerate(zip(f32["cuda"], f32["cpu"])):
-        err = float((a - b).abs().max())
-        same = bool(torch.equal(a.argmax(-1), b.argmax(-1)))
-        worst = max(worst, err)
-        print(f"  {'prefill' if i == 0 else f'decode {i}'}: max |card - cpu| "
-              f"{err:.3e}, same greedy token: {same}")
-        check(torch.isfinite(a).all().item(), "non-finite logits on the card")
-        check(same, "the card and the CPU chose different tokens")
-    check(worst <= 1e-4, f"card vs CPU logits differ by {worst:.3e} > 1e-4")
+        return logits_all
+
+    def compare(card, cpu, quiet=False):
+        worst = 0.0
+        for i, (a, b) in enumerate(zip(card, cpu)):
+            err = float((a - b).abs().max())
+            same = bool(torch.equal(a.argmax(-1), b.argmax(-1)))
+            worst = max(worst, err)
+            if not quiet:
+                print(f"  {'prefill' if i == 0 else f'decode {i}'}: max |card "
+                      f"- cpu| {err:.3e}, same greedy token: {same}")
+            check(torch.isfinite(a).all().item(), "non-finite logits on the "
+                  "card")
+            check(same, "the card and the CPU chose different tokens")
+        check(worst <= 1e-4, f"card vs CPU logits differ by {worst:.3e} > "
+              "1e-4")
+        return worst
+
+    cpu = run("cpu")
+    worst = compare(run("cuda"), cpu)
     print(f"  worst {worst:.3e} (tol 1e-4)")
+    if not scalar_norm:
+        return
+    vector_body = rn.rmsnorm
+
+    def off_alignment(x, scale, eps=1e-5):
+        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+        x_off = buf[1:].view(x.shape)
+        x_off.copy_(x)
+        return vector_body(x_off, scale, eps)
+
+    rn.rmsnorm = off_alignment
+    try:
+        worst_s = compare(run("cuda"), cpu, quiet=True)
+    finally:
+        rn.rmsnorm = vector_body
+    print(f"  every RMSNorm on its scalar body: worst {worst_s:.3e}; on the "
+          f"vector body (above): {worst:.3e}")
 
 
-def report_profile(eng_p, stats_p, prof, serve_wall, untraced):
-    """Phases 6 and 9: busy share of the traced serve and its largest
-    kernels."""
+# The hand-written kernels, by their names in a trace.
+KERNEL_NAMES = {"flash_attention": re.compile(r"flash_fwd"),
+                "rmsnorm": re.compile(r"(?<!\w)rmsnorm_(vec_)?kernel"),
+                "gated_rmsnorm": re.compile(r"gated_rmsnorm_kernel"),
+                "ssd_intra_chunk": re.compile(r"ssd_intra_chunk_kernel")}
+
+
+def report_profile(eng_p, stats_p, prof, serve_wall, untraced, kernels):
+    """Phases 6 and 9: busy share of the traced serve, the device totals of
+    ``kernels`` (names of ``KERNEL_NAMES``), and its largest kernels."""
     acts = device_activities(prof)
     check(acts, "the traced serve recorded no device activity")
     per_kernel = {}
@@ -481,6 +595,12 @@ def report_profile(eng_p, stats_p, prof, serve_wall, untraced):
           f"{100 - 100 * busy_ms / span_ms:.2f}% idle; traced wall "
           f"{stats_p['wall_s'] * 1e3:.1f} ms against {untraced}'s untraced "
           f"{serve_wall * 1e3:.1f} ms")
+    for label in kernels:
+        mine = [us for name, us, _, _ in acts
+                if KERNEL_NAMES[label].search(name)]
+        print(f"  {label}: {sum(mine) / 1e3:.3f} ms device in {len(mine)} "
+              f"launches, {100 * sum(mine) / 1e3 / busy_ms:.2f}% of the "
+              "device time")
     for key, us in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:10]:
         print(f"  {us / 1e3:9.3f} ms  {key[:100]}")
 
@@ -536,10 +656,13 @@ def main() -> int:
     print(f"built {sorted(libs)} in {time.perf_counter() - t0:.2f} s")
     for name, path in sorted(libs.items()):
         log = path.with_suffix(".log")
-        if log.exists():
-            for line in log.read_text().splitlines():
-                if "registers" in line or "spill" in line:
-                    print(f"  {name} ptxas: {line.strip()}")
+        entry = name
+        for line in (log.read_text().splitlines() if log.exists() else ()):
+            m = re.search(r"\d([a-z][a-z_]*_kernel)I(\w+?)E+v", line)
+            if "Compiling entry" in line and m:   # mangled name, template
+                entry = f"{m.group(1)}<{m.group(2)}>"  # args as mangled
+            elif "registers" in line or "spill" in line:
+                print(f"  {entry} ptxas: {line.split(':', 1)[-1].strip()}")
 
     print("=== 3. kernels against their plain versions on the card ===")
     rows = phase_kernels(torch, fa, rn, ref, hw)
@@ -562,11 +685,13 @@ def main() -> int:
     llsc_wall = stats["wall_s"]
 
     print("=== 5. card vs CPU, llsc-100m full width, float32 ===")
-    card_vs_cpu(torch, np, model_lib, perf, engine.TIME_AXIS_LEAVES, cfg, 128)
+    card_vs_cpu(torch, np, model_lib, perf, engine.TIME_AXIS_LEAVES, cfg, 128,
+                scalar_norm=True)
 
     print("=== 6. the serve of phase 4 under torch.profiler ===")
     report_profile(*phase_serve(torch, cfg, params, engine, counters, perf,
-                                profile=True, **serve), llsc_wall, "phase 4")
+                                profile=True, **serve), llsc_wall, "phase 4",
+                   ("flash_attention", "rmsnorm"))
     del params
 
     print("=== 7. serve mamba2-370m, full width and depth, bf16 ===")
@@ -593,7 +718,8 @@ def main() -> int:
 
     print("=== 9. the serve of phase 7 under torch.profiler ===")
     report_profile(*phase_serve(torch, cfg, params, engine, counters, perf,
-                                profile=True, **serve), mamba_wall, "phase 7")
+                                profile=True, **serve), mamba_wall, "phase 7",
+                   ("rmsnorm", "gated_rmsnorm", "ssd_intra_chunk"))
 
     print(f"=== 10. summary (whole run {time.perf_counter() - t_all:.1f} s) ===")
     for row in rows:

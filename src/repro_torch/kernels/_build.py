@@ -2,15 +2,17 @@
 
 Each source has a plain C interface and becomes its own shared library,
 ``build/kernels/lib<name>-<hash>.so`` at the root of the checkout, where
-the hash covers the source, the flags and the nvcc used.  A library that
-is already there is reused.  The build happens at first use (the first
-launch on a CUDA tensor), never at import, and a failed nvcc raises.
+the hash covers the source, the local headers it includes, the flags and
+the nvcc used.  A library that is already there is reused.  The build
+happens at first use (the first launch on a CUDA tensor), never at import,
+and a failed nvcc raises.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -21,6 +23,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = ("flash_attention", "rmsnorm", "ssd")
+_LOCAL_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 
 def find_nvcc() -> str:
@@ -36,11 +39,26 @@ def find_nvcc() -> str:
                        "toolkit (nvcc on PATH or under $CUDA_HOME)")
 
 
+def _sources(path: Path, seen: List[Path]) -> List[Path]:
+    """``path`` and, depth first, every ``#include "..."`` under ``csrc/``
+    that it reaches, each once."""
+    if path in seen:
+        return seen
+    seen.append(path)
+    for inc in _LOCAL_INCLUDE.findall(path.read_text()):
+        if (CSRC / inc).exists():
+            _sources(CSRC / inc, seen)
+    return seen
+
+
 def library_path(name: str, nvcc: str) -> Path:
     """Where the library of ``csrc/<name>.cu`` goes, named by a hash of
-    the source, the flags and the compiler."""
+    the source, the local headers it includes, the flags and the
+    compiler."""
     h = hashlib.sha256()
-    h.update((CSRC / f"{name}.cu").read_bytes())
+    for path in _sources(CSRC / f"{name}.cu", []):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     h.update(os.path.realpath(nvcc).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"

@@ -3,47 +3,107 @@
 // Replaces: src/repro/kernels/flash_attention.py:27 `_flash_kernel`
 // (launched by `flash_attention` at :71, `pl.pallas_call` at :97).
 //
-// What bounds it on the card: at the shapes the model gives it
-// (prefill, S = T = 128..512, D = 64) the work is ~4*S*T*D*H FLOPs against
-// ~4*S*H*D*bytes of q, k, v, o, i.e. tens to a few hundred FLOPs per byte:
-// on an H100 that is below the ~295 FLOP/byte ridge at short S and above it
-// at long S.  This first version does its products on the CUDA cores in
-// fp32 out of shared memory, so it is bounded by shared-memory traffic and
-// FMA issue, far from either data-sheet bound; `wgmma` tiles, TMA loads and
-// a pipelined KV ring are later work.
+// Two bodies, chosen by dtype:
+//   * bfloat16, the fast path: `flash_fwd_mma_kernel`, products on the
+//     tensor cores (mma.sync m16n8k16, bf16 in, fp32 accumulate).
+//   * float32, the exactness path: `flash_fwd_kernel`, fp32 FMAs on the
+//     CUDA cores.  A TF32 product would keep ~3 decimal digits, which the
+//     2e-5 sweep tolerance and the 1e-4 card-vs-CPU logits check of the
+//     fp32 model do not allow; this body is the older of the two, kept as
+//     it was written.
 //
-// Design.  The TPU kernel carries (m, l, acc) in VMEM scratch across a
-// sequential KV grid axis.  Blocks on the card run in no order, so one
-// block owns one (query tile, head, batch) and loops over KV tiles itself,
-// with the running max, sum and accumulator in registers:
-//   * BQ = 32 query rows per block, 4 threads per row (128 threads); each
-//     thread holds 16 scores of a 64-key tile and D/4 output columns.
-//   * q, k and v tiles are staged in shared memory as fp32, rows padded to
-//     D+1 floats so that a column read by the 8 rows of a warp hits 8
-//     different banks.  Softmax statistics are fp32, with the TPU kernel's
-//     NEG_INF = -1e30 guards for masked entries and rows (:55-58) and the
-//     flush dividing by max(l, 1e-30) (:67).
-//   * Inputs are read through (batch, seq, head) strides with the last dim
-//     contiguous, so the model's [B,S,H,D] layout is used as it is and
-//     [B,H,S,D] is the same kernel with two strides swapped.
-//   * GQA: query head h reads KV head h / G; KV is never replicated.
-//   * Causal: positions start at 0 on both axes (the reference's iota
-//     masks), and KV tiles wholly above the diagonal are not visited.
-//   * Ragged S and T are masked, so nothing has to divide by the tiles.
-// The wrapper (kernels/flash_attention.py) checks device, dtype, shapes and
-// strides; this file launches on the caller's stream and returns
-// cudaGetLastError().
+// What bounds it on the card: at the shapes the model gives it (prefill,
+// S = T = 128..512, 12 heads of 64, one sequence) the work is
+// 4*H*D*S*(S+1)/2 causal FLOPs (0.1 GFLOP at S = 256, 0.1 us at the bf16
+// peak) on 4*S*H*D*2 bytes (1.5 MB, 0.47 us at the HBM rate), so either
+// bound is far below a microsecond and the kernel is bound by latency:
+// the length of one block's serial path (its KV tiles, one after the
+// other), and how few blocks there are to fill 132 SMs.  The fp32 body
+// adds shared-memory traffic (every FMA is fed by two shared loads); in
+// bf16 it took 71 us at S = 256 on an H100 80GB HBM3 at 700 W.
+//
+// The bf16 design against that:
+//   * Products on the tensor cores.  QK^T and PV are mma.sync m16n8k16
+//     with fp32 accumulation, operands loaded by ldmatrix (.trans for V);
+//     a warp owns a 16-row slice of the query tile, one mma row block.
+//     bf16 x bf16 products are exact in fp32, so QK^T computes what the
+//     reference's fp32 dot computes, up to summation order.
+//   * P stays in registers: the fp32 score fragment of QK^T is, after the
+//     online softmax, rounded to bf16 and used as the A fragment of PV, as
+//     the plain reference rounds the weights to v's dtype before PV
+//     (kernels/ref.py: `w.to(v.dtype)`).  The row sum l takes fp32 p.
+//   * Q is read once (cp.async) and its fragments stay in registers for the
+//     whole KV loop.  K and V come in by 16-byte cp.async into a ring of
+//     two stages, so stage j+1 loads while stage j computes; the ragged
+//     edge is zero-filled (src-size 0), never read.  Shared rows are padded
+//     by 16 bytes (D + 8 elements), so the 8 rows an ldmatrix reads start
+//     4 banks apart and hit 32 different banks.
+//   * A shorter serial path.  A block owns 64 query rows with 8 warps in
+//     two groups: a ring stage holds two 64-key tiles, one for each group,
+//     so each group walks half of the block's KV tiles, and at the end
+//     group 1 hands its (m, l, acc) through shared memory to group 0,
+//     which merges them as the online softmax merges two tiles.  With one
+//     group of 4 warps, S = 256 took 15.1 us on the same card and each KV
+//     tile on the critical path cost ~3 us: one warp per scheduler exposes
+//     every mma, shuffle and exp latency.  Two groups took 10.8 us.
+//   * Grid (H, B, ceil(S / 64)), the query tile taken from the last z index
+//     first, so the heaviest causal tiles are dispatched first.  At S = 256
+//     that is 48 blocks on 132 SMs; 32-row tiles would give 96, but each
+//     would walk the same KV tiles in series and load K/V twice as often.
+//   * A warp whose 16 rows all lie before a tile's first key (causal), or
+//     past S, skips that tile's products, and only tiles that cross the
+//     diagonal or the ragged end of T compute a mask.
+//   * Every pointer and (batch, seq, head) stride must be 16-byte aligned
+//     for cp.async; the wrapper raises otherwise, and the entry point
+//     returns cudaErrorMisalignedAddress rather than take another body.
+//
+// Both bodies keep the TPU kernel's arithmetic: s = (q.k) * scale with the
+// scale applied to the fp32 product (:42-43); the online softmax with fp32
+// running max, sum and accumulator; NEG_INF = -1e30 masks, the guard for
+// fully masked rows (safe_m, alpha) and the flush dividing by
+// max(l, 1e-30) (:55-67); causal positions from 0 on both axes (the
+// reference's iota masks), KV tiles wholly above the diagonal not visited;
+// GQA by h / G with KV never replicated; ragged S and T masked; inputs
+// read through (batch, seq, head) strides with the last dim contiguous, so
+// [B,S,H,D] views of one qkv buffer are read in place and [B,H,S,D] is the
+// same kernel with two strides swapped.  D is 32, 64 or 128.
+//
+// Registers and spills (ptxas -v for sm_90a, CUDA 12.8, as phase 2 of
+// chip_smoke.py prints them): the bf16 body 128 / 159 / 222 registers at
+// D = 32 / 64 / 128, no spills (8 warps a block, so 256 threads x 222
+// registers fit the SM's 65,536); the fp32 body 72 / 72 / 96, with 16 /
+// 0 / 4 bytes spilled.
+//
+// The fp32 body: one block per (32-row query tile, head, batch), 4
+// threads per row, q, k, v staged in shared memory as fp32 rows padded to
+// D+1 floats; each thread holds 16 scores of a 64-key tile and D/4 output
+// columns.
+//
+// The wrapper (kernels/flash_attention.py) checks device, dtype, shapes,
+// strides and alignment; this file launches on the caller's stream and
+// returns cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
+#include "mma.cuh"
+
 namespace {
 
-constexpr int BQ = 32;               // query rows per block
+constexpr int BQ = 32;               // fp32 body: query rows per block
 constexpr int BK = 64;               // keys per KV tile
 constexpr int TPR = 4;               // threads per query row
 constexpr int THREADS = BQ * TPR;    // 128
 constexpr float NEG_INF = -1e30f;
+
+constexpr int MMA_BQ = 64;           // bf16 body: query rows per block
+constexpr int MMA_BK = 64;           // keys per KV tile
+constexpr int MMA_SLICES = MMA_BQ / 16;       // 16-row slices, one a warp
+constexpr int MMA_SPLIT = 2;         // warp groups sharing out the KV tiles
+constexpr int MMA_SUPER = MMA_SPLIT * MMA_BK;  // keys of one ring stage
+constexpr int MMA_THREADS = MMA_SLICES * MMA_SPLIT * 32;  // 256
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -167,6 +227,253 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// The bf16 body (see the note at the top).  Block (h, b, z) owns query
+// rows [q0, q0 + 64) of head h.  Warp w works on the 16 rows of slice
+// w % 4 with the KV tiles of group w / 4: ring stage j holds tiles 2j and
+// 2j + 1, one for each group.  Group 1 hands its (m, l, acc) to group 0,
+// which merges them and writes the output.
+template <int D>
+__global__ void __launch_bounds__(MMA_THREADS)
+flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                     const __nv_bfloat16* __restrict__ k,
+                     const __nv_bfloat16* __restrict__ v,
+                     __nv_bfloat16* __restrict__ o, int S, int T_len, int G,
+                     Strides qs, Strides ks, Strides vs, Strides os,
+                     float scale, int causal) {
+  using bf16 = __nv_bfloat16;
+  constexpr int SROW = D + 8;        // padded shared row (elements)
+  constexpr int CHUNKS = D / 8;      // 16-byte chunks of a row
+  constexpr int NS = MMA_BK / 8;     // 8-key column tiles of the scores
+  constexpr int NO = D / 8;          // 8-wide column tiles of the output
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sq = reinterpret_cast<bf16*>(smem_raw);  // [MMA_BQ][SROW]
+  bf16* sk = sq + MMA_BQ * SROW;                 // [2][MMA_SUPER][SROW]
+  bf16* sv = sk + 2 * MMA_SUPER * SROW;          // [2][MMA_SUPER][SROW]
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int slice = warp % MMA_SLICES;
+  const int group = warp / MMA_SLICES;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * MMA_BQ;
+  const int hk = h / G;
+  const bf16* qb = q + b * qs.b + h * qs.h;
+  const bf16* kb = k + b * ks.b + hk * ks.h;
+  const bf16* vb = v + b * vs.b + hk * vs.h;
+
+  for (int i = tid; i < MMA_BQ * CHUNKS; i += MMA_THREADS) {
+    const int r = i / CHUNKS, c = (i % CHUNKS) * 8;
+    const int s = q0 + r;
+    mma::cp_async16(sq + r * SROW + c, qb + min(s, S - 1) * qs.s + c, s < S);
+  }
+  auto load_kv = [&](int k0, int stage) {
+    bf16* dk = sk + stage * MMA_SUPER * SROW;
+    bf16* dv = sv + stage * MMA_SUPER * SROW;
+    for (int i = tid; i < MMA_SUPER * CHUNKS; i += MMA_THREADS) {
+      const int r = i / CHUNKS, c = (i % CHUNKS) * 8;
+      const int t = k0 + r;
+      const long long tc = min(t, T_len - 1);
+      mma::cp_async16(dk + r * SROW + c, kb + tc * ks.s + c, t < T_len);
+      mma::cp_async16(dv + r * SROW + c, vb + tc * vs.s + c, t < T_len);
+    }
+    mma::cp_async_commit();
+  };
+
+  // Causal: a tile starting past the block's last query row is all masked.
+  const int kv_end = causal ? min(T_len, q0 + MMA_BQ) : T_len;
+  const int n_stages = (kv_end + MMA_SUPER - 1) / MMA_SUPER;
+  load_kv(0, 0);                     // one group with the Q tile
+
+  const int row_lo = q0 + slice * 16;
+  const int r0 = row_lo + lane / 4;  // rows of c0, c1; c2, c3 are r0 + 8
+  unsigned qf[D / 16][4];
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m_run[2] = {NEG_INF, NEG_INF};
+  float l_run[2] = {0.f, 0.f};       // this lane's part of the row sums
+
+  for (int j = 0; j < n_stages; ++j) {
+    mma::cp_async_wait_all();
+    __syncthreads();                 // stage j landed; stage j-1 is consumed
+    if (j + 1 < n_stages) load_kv((j + 1) * MMA_SUPER, (j + 1) % 2);
+    if (j == 0) {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        mma::ldmatrix_x4(qf[kk], sq + (slice * 16 + lane % 16) * SROW +
+                                     kk * 16 + (lane / 16) * 8);
+    }
+    const int k0 = j * MMA_SUPER + group * MMA_BK;
+    if (row_lo >= S || k0 >= kv_end || (causal && k0 > row_lo + 15))
+      continue;
+    const bf16* tk = sk + ((j % 2) * MMA_SUPER + group * MMA_BK) * SROW;
+    const bf16* tv = sv + ((j % 2) * MMA_SUPER + group * MMA_BK) * SROW;
+
+    float s[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+      for (int n = 0; n < NS; n += 2) {
+        unsigned kf[4];              // b0, b1 of key tiles n and n + 1
+        mma::ldmatrix_x4(kf, tk + (n * 8 + lane % 8 + (lane / 16) * 8) * SROW
+                                 + kk * 16 + ((lane / 8) % 2) * 8);
+        mma::mma_bf16_16816(s[n], qf[kk], kf[0], kf[1]);
+        mma::mma_bf16_16816(s[n + 1], qf[kk], kf[2], kf[3]);
+      }
+    }
+
+    const bool need_mask =
+        k0 + MMA_BK > T_len || (causal && k0 + MMA_BK - 1 > row_lo);
+    float m_tile[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[n][e] * scale;
+        if (need_mask) {
+          const int t = k0 + n * 8 + (lane % 4) * 2 + (e & 1);
+          const int qpos = r0 + (e >> 1) * 8;
+          if (t >= T_len || (causal && t > qpos)) x = NEG_INF;
+        }
+        s[n][e] = x;
+        m_tile[e >> 1] = fmaxf(m_tile[e >> 1], x);
+      }
+    float safe_m[2], alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {    // a row's 4 lanes are one quad
+      m_tile[r] = fmaxf(m_tile[r], __shfl_xor_sync(0xffffffffu, m_tile[r], 1));
+      m_tile[r] = fmaxf(m_tile[r], __shfl_xor_sync(0xffffffffu, m_tile[r], 2));
+      const float m_new = fmaxf(m_run[r], m_tile[r]);
+      safe_m[r] = m_new <= NEG_INF ? 0.f : m_new;
+      alpha[r] = m_run[r] <= NEG_INF ? 0.f : expf(m_run[r] - safe_m[r]);
+      m_run[r] = m_new;
+      l_run[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p =
+            s[n][e] <= NEG_INF ? 0.f : expf(s[n][e] - safe_m[e >> 1]);
+        s[n][e] = p;
+        l_run[e >> 1] += p;
+      }
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
+
+#pragma unroll
+    for (int kk = 0; kk < MMA_BK / 16; ++kk) {
+      // The C fragments of key tiles 2kk and 2kk+1 are the A fragment of
+      // keys 16kk .. 16kk+15.
+      const float(&lo)[4] = s[2 * kk];
+      const float(&hi)[4] = s[2 * kk + 1];
+      const unsigned pf[4] = {
+          mma::pack_bf16(lo[0], lo[1]), mma::pack_bf16(lo[2], lo[3]),
+          mma::pack_bf16(hi[0], hi[1]), mma::pack_bf16(hi[2], hi[3])};
+#pragma unroll
+      for (int n = 0; n < NO; n += 2) {
+        unsigned vf[4];              // b0, b1 of output tiles n and n + 1
+        mma::ldmatrix_x4_trans(
+            vf, tv + (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) * SROW +
+                    n * 8 + (lane / 16) * 8);
+        mma::mma_bf16_16816(acc[n], pf, vf[0], vf[1]);
+        mma::mma_bf16_16816(acc[n + 1], pf, vf[2], vf[3]);
+      }
+    }
+  }
+
+  // Merge the groups' partial softmaxes, as the online softmax merges two
+  // tiles, through shared memory (the ring is free once every warp is
+  // past its last tile): [group - 1][slice][value][lane] floats.
+  constexpr int PART = NO * 4 + 4;   // acc, then m and l of both rows
+  float l[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] = l_run[r] + __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  float* part = reinterpret_cast<float*>(sk);
+  __syncthreads();
+  if (group > 0) {
+    float* mine = part + ((group - 1) * MMA_SLICES + slice) * PART * 32 + lane;
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mine[(n * 4 + e) * 32] = acc[n][e];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mine[(NO * 4 + r) * 32] = m_run[r];
+      mine[(NO * 4 + 2 + r) * 32] = l[r];
+    }
+  }
+  __syncthreads();
+  if (group > 0) return;
+#pragma unroll
+  for (int g = 1; g < MMA_SPLIT; ++g) {
+    const float* other =
+        part + ((g - 1) * MMA_SLICES + slice) * PART * 32 + lane;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m_o = other[(NO * 4 + r) * 32];
+      const float m_new = fmaxf(m_run[r], m_o);
+      const float safe_m = m_new <= NEG_INF ? 0.f : m_new;
+      const float a = m_run[r] <= NEG_INF ? 0.f : expf(m_run[r] - safe_m);
+      const float a_o = m_o <= NEG_INF ? 0.f : expf(m_o - safe_m);
+      l[r] = a * l[r] + a_o * other[(NO * 4 + 2 + r) * 32];
+      m_run[r] = m_new;
+#pragma unroll
+      for (int n = 0; n < NO; ++n)
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+          acc[n][2 * r + c] =
+              a * acc[n][2 * r + c] + a_o * other[(n * 4 + 2 * r + c) * 32];
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float denom = fmaxf(l[r], 1e-30f);
+    const int qpos = r0 + 8 * r;
+    if (qpos < S) {
+      bf16* orow = o + b * os.b + h * os.h + qpos * os.s + (lane % 4) * 2;
+#pragma unroll
+      for (int n = 0; n < NO; ++n)
+        *reinterpret_cast<__nv_bfloat162*>(orow + n * 8) =
+            __floats2bfloat162_rn(acc[n][2 * r] / denom,
+                                  acc[n][2 * r + 1] / denom);
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
+                       int B, int H, int Hk, int S, int T_len, Strides qs,
+                       Strides ks, Strides vs, Strides os, float scale,
+                       int causal, cudaStream_t stream) {
+  constexpr int smem = (MMA_BQ + 4 * MMA_SUPER) * (D + 8) *
+                       static_cast<int>(sizeof(__nv_bfloat16));
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(H, B, (S + MMA_BQ - 1) / MMA_BQ);
+  flash_fwd_mma_kernel<D><<<grid, MMA_THREADS, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), S,
+      T_len, H / Hk, qs, ks, vs, os, scale, causal);
+  return cudaGetLastError();
+}
+
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int B, int H, int Hk, int S, int T_len, Strides qs,
@@ -185,31 +492,18 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
-                       void* o, int B, int H, int Hk, int S, int T_len,
-                       Strides qs, Strides ks, Strides vs, Strides os,
-                       float scale, int causal, cudaStream_t stream) {
-  switch (D) {
-    case 32:
-      return launch<T, 32>(q, k, v, o, B, H, Hk, S, T_len, qs, ks, vs, os,
-                           scale, causal, stream);
-    case 64:
-      return launch<T, 64>(q, k, v, o, B, H, Hk, S, T_len, qs, ks, vs, os,
-                           scale, causal, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, o, B, H, Hk, S, T_len, qs, ks, vs, os,
-                            scale, causal, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
+bool aligned16(const void* p, const Strides& st) {
+  return reinterpret_cast<std::uintptr_t>(p) % 16 == 0 && st.b % 8 == 0 &&
+         st.s % 8 == 0 && st.h % 8 == 0;
 }
 
 }  // namespace
 
 // q [B, S, H, D], k/v [B, T, Hk, D], o [B, S, H, D], each addressed through
-// its (batch, seq, head) strides in elements.  is_bf16: 1 for bfloat16,
-// 0 for float32.  Returns a cudaError_t (0 on success).
+// its (batch, seq, head) strides in elements.  is_bf16: 1 for bfloat16 (the
+// tensor-core body; q, k, v and every stride 16-byte aligned, else
+// cudaErrorMisalignedAddress), 0 for float32.  Returns a cudaError_t (0 on
+// success).
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int is_bf16, int B,
     int H, int Hk, int S, int T_len, int D, long long q_sb, long long q_ss,
@@ -221,9 +515,23 @@ extern "C" int flash_attention_fwd(
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh},
       vs{v_sb, v_ss, v_sh}, os{o_sb, o_ss, o_sh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return dispatch_d<__nv_bfloat16>(D, q, k, v, o, B, H, Hk, S, T_len, qs,
-                                     ks, vs, os, scale, causal, st);
-  return dispatch_d<float>(D, q, k, v, o, B, H, Hk, S, T_len, qs, ks, vs, os,
-                           scale, causal, st);
+#define FLASH_ARGS q, k, v, o, B, H, Hk, S, T_len, qs, ks, vs, os, scale, \
+                   causal, st
+  if (is_bf16) {
+    if (!aligned16(q, qs) || !aligned16(k, ks) || !aligned16(v, vs))
+      return cudaErrorMisalignedAddress;
+    switch (D) {
+      case 32: return launch_mma<32>(FLASH_ARGS);
+      case 64: return launch_mma<64>(FLASH_ARGS);
+      case 128: return launch_mma<128>(FLASH_ARGS);
+      default: return cudaErrorInvalidValue;
+    }
+  }
+  switch (D) {
+    case 32: return launch<float, 32>(FLASH_ARGS);
+    case 64: return launch<float, 64>(FLASH_ARGS);
+    case 128: return launch<float, 128>(FLASH_ARGS);
+    default: return cudaErrorInvalidValue;
+  }
+#undef FLASH_ARGS
 }

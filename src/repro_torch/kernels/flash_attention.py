@@ -3,8 +3,12 @@
 ``repro/kernels/flash_attention.py:27 _flash_kernel``.
 
 Both functions take CUDA tensors only and raise on anything the kernel does
-not take; the CPU path lives in :mod:`repro_torch.kernels.ops`.  ``launches``
-counts the kernel launches made through this module.
+not take; the CPU path lives in :mod:`repro_torch.kernels.ops`.  bfloat16
+runs on the tensor cores and reads q, k and v with 16-byte copies, so their
+base pointers and (batch, seq, head) strides must be 16-byte aligned;
+float32 is the exactness path (fp32 products).  There is no backward: with
+grad enabled, inputs that require grad raise.  ``launches`` counts the
+kernel launches made through this module.
 """
 from __future__ import annotations
 
@@ -13,7 +17,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _guard
 
 launches = 0
 
@@ -32,6 +36,7 @@ def _kernel():
 
 
 def _check(q, k, v):
+    _guard.refuse_autograd("flash_attention", q, k, v)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda:
             raise ValueError(f"flash_attention: {name} is not a CUDA tensor")
@@ -67,6 +72,13 @@ def _launch(q, k, v, out, dims, strides, causal, scale):
         raise ValueError("flash_attention: q and k differ in batch or head dim")
     if min(B, S, T) == 0:
         return out
+    if q.dtype == torch.bfloat16:
+        for name, t, st in zip("qkv", (q, k, v), strides):
+            if t.data_ptr() % 16 or any(x % 8 for x in st):
+                raise ValueError(
+                    f"flash_attention: bfloat16 {name} must be 16-byte "
+                    f"aligned (address {t.data_ptr():#x}, (batch, seq, "
+                    f"head) strides {st} elements, each a multiple of 8)")
     scale = D ** -0.5 if scale is None else scale
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream

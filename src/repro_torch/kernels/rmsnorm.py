@@ -3,8 +3,10 @@
 _rmsnorm_kernel`` and ``:26 _gated_kernel``.
 
 Both take CUDA tensors only and raise on anything the kernel does not take;
-the CPU path lives in :mod:`repro_torch.kernels.ops`.  ``launches`` counts
-the launches of the plain norm, ``gated_launches`` those of the gated one.
+the CPU path lives in :mod:`repro_torch.kernels.ops`.  There is no
+backward: with grad enabled, inputs that require grad raise.  ``launches``
+counts the launches of the plain norm, ``gated_launches`` those of the
+gated one.
 """
 from __future__ import annotations
 
@@ -13,7 +15,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _guard
 
 launches = 0
 gated_launches = 0
@@ -59,6 +61,7 @@ def rmsnorm(x, scale, eps: float = 1e-5):
     """x [..., D] contiguous; scale [D] in x's dtype -> x's shape and
     dtype."""
     global launches
+    _guard.refuse_autograd("rmsnorm", x, scale)
     for name, t in (("x", x), ("scale", scale)):
         if not t.is_cuda:
             raise ValueError(f"rmsnorm: {name} is not a CUDA tensor")
@@ -97,6 +100,7 @@ def gated_rmsnorm(y, z, scale, eps: float = 1e-5):
     strided slice of the input projection); scale [D]; all in one dtype.
     Returns a contiguous tensor of y's shape and dtype."""
     global gated_launches
+    _guard.refuse_autograd("gated_rmsnorm", y, z, scale)
     for name, t in (("y", y), ("z", z), ("scale", scale)):
         if not t.is_cuda:
             raise ValueError(f"gated_rmsnorm: {name} is not a CUDA tensor")

@@ -2,8 +2,9 @@
 (``csrc/ssd.cu``), the port of ``repro/kernels/ssd.py:27 _ssd_kernel``.
 
 Takes CUDA tensors only and raises on anything the kernel does not take;
-the CPU path lives in :mod:`repro_torch.kernels.ops`.  ``launches`` counts
-the kernel launches made through this module.
+the CPU path lives in :mod:`repro_torch.kernels.ops`.  There is no
+backward: with grad enabled, inputs that require grad raise.  ``launches``
+counts the kernel launches made through this module.
 """
 from __future__ import annotations
 
@@ -12,7 +13,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _guard
 
 launches = 0
 
@@ -36,6 +37,7 @@ def ssd_intra_chunk(x, dt, A, B, C, *, out_dtype=None):
     views with a contiguous last dimension.  Returns y [N,l,h,p], contiguous,
     in ``out_dtype`` (float32 or x's dtype; default x's dtype)."""
     global launches
+    _guard.refuse_autograd("ssd_intra_chunk", x, dt, A, B, C)
     for name, t in (("x", x), ("dt", dt), ("A", A), ("B", B), ("C", C)):
         if not t.is_cuda:
             raise ValueError(f"ssd_intra_chunk: {name} is not a CUDA tensor")

@@ -43,7 +43,9 @@ def _close(got, want, dtype):
     (1, 4, 4, 256, 256, 64, True), (2, 8, 2, 64, 64, 128, True),
     (1, 2, 2, 128, 128, 32, False), (1, 12, 12, 128, 128, 64, True),
     (1, 12, 12, 256, 256, 64, True), (2, 4, 2, 100, 100, 64, True),
-    (1, 4, 1, 33, 70, 32, False)])
+    (1, 4, 1, 33, 70, 32, False), (1, 12, 12, 1024, 1024, 64, True),
+    (1, 4, 2, 16, 16, 64, True), (1, 4, 2, 1, 1, 64, True),
+    (1, 8, 2, 320, 320, 128, True)])
 def test_flash_kernel_matches_plain(dev, B, H, Hk, S, T, D, causal, dtype):
     g = torch.Generator(device=dev).manual_seed(S * D + H)
     q = torch.randn(B, H, S, D, device=dev, generator=g).to(dtype)
@@ -66,13 +68,75 @@ def test_flash_bshd_reads_strided_views(dev, dtype):
     _close(got, want, dtype)
 
 
+@pytest.mark.parametrize("S", [256, 1024])
+def test_flash_bf16_error_is_the_rounding_of_weights_and_output(dev, S):
+    """Against attention computed exactly (float64) from the same bf16
+    inputs.  The bf16 body rounds two things: each weight exp(s - m) before
+    the PV product, and the output.  With u = 2**-8, bf16's unit roundoff,
+    the first moves an output by at most u * (P @ |V|), the second by at
+    most u * |out|, so every element stays within their sum.  The RMS error
+    must also stay within 0.75 u of the output's RMS: the two roundings
+    alone give about 0.57 u at these shapes, and one of the two warp
+    groups' weights off by 1% gives 1.0 u or more."""
+    u = 2.0 ** -8
+    g = torch.Generator(device=dev).manual_seed(S)
+    q, k, v = (torch.randn(1, 12, S, 64, device=dev, generator=g)
+               .to(torch.bfloat16) for _ in range(3))
+    got = fa.flash_attention(q, k, v, causal=True).double()
+    s = q.double() @ k.double().transpose(-1, -2) * 64 ** -0.5
+    above = torch.ones(S, S, dtype=torch.bool, device=dev).triu(1)
+    p = torch.softmax(s.masked_fill(above, float("-inf")), dim=-1)
+    want = p @ v.double()
+    bound = u * (p @ v.double().abs() + want.abs()) + 1e-6
+    worst = ((got - want).abs() / bound).max().item()
+    rms = ((got - want).pow(2).mean() / want.pow(2).mean()).sqrt().item()
+    print(f"S {S}: worst error / bound {worst:.3f}, RMS error {rms / u:.3f} u")
+    assert worst <= 1, f"worst error / bound {worst:.3f}"
+    assert rms <= 0.75 * u, f"RMS error {rms / u:.3f} u"
+
+
+def test_flash_bf16_refuses_unaligned_inputs(dev):
+    """The bf16 body reads q, k, v with 16-byte copies: a view one element
+    off alignment, or a sequence stride that is not a multiple of 8
+    elements, raises and launches nothing."""
+    buf = torch.randn(2 * 64 * 64 + 1, device=dev).to(torch.bfloat16)
+    odd = buf[1:].view(1, 2, 64, 64)
+    n = fa.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.flash_attention(odd, odd, odd)
+    wide = torch.randn(1, 64, 2, 68, device=dev).to(torch.bfloat16)
+    q = wide[..., :64]                        # head stride 68
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.flash_attention_bshd(q, q, q)
+    assert fa.launches == n
+    odd = torch.randn(2 * 64 * 64 + 1, device=dev)[1:].view(1, 2, 64, 64)
+    got = fa.flash_attention(odd, odd, odd)   # fp32 takes any alignment
+    torch.cuda.synchronize()
+    _close(got, ref.attention_ref(odd, odd, odd), torch.float32)
+
+
+# The test sweep, llsc-100m's and mamba2-370m's rows (vector body), then
+# widths that are not a multiple of 8 elements (scalar body).
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("rows,d", [(32, 128), (33, 256), (7, 64), (4, 768),
-                                    (256, 768), (1, 1000)])
+                                    (256, 768), (1, 1000), (4, 1024),
+                                    (320, 1024), (5, 100), (3, 101)])
 def test_rmsnorm_kernel_matches_plain(dev, rows, d, dtype):
     g = torch.Generator(device=dev).manual_seed(rows + d)
     x = torch.randn(rows, d, device=dev, generator=g).to(dtype)
     s = (torch.randn(d, device=dev, generator=g) * 0.1 + 1.0).to(dtype)
+    got = rn.rmsnorm(x, s)
+    torch.cuda.synchronize()
+    _close(got, ref.rmsnorm_ref(x, s), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rmsnorm_reads_rows_off_alignment(dev, dtype):
+    """Rows one element off 16-byte alignment take the scalar body."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    x = torch.randn(4 * 768 + 1, device=dev, generator=g).to(dtype)
+    x = x[1:].view(4, 768)
+    s = (torch.randn(768, device=dev, generator=g) * 0.1 + 1.0).to(dtype)
     got = rn.rmsnorm(x, s)
     torch.cuda.synchronize()
     _close(got, ref.rmsnorm_ref(x, s), dtype)
@@ -87,7 +151,8 @@ def test_cuda_tensors_never_take_the_plain_route(dev, monkeypatch):
     q = torch.randn(1, 2, 128, 64, device=dev)
     n_fa, n_rn = fa.launches, rn.launches
     ops.flash_attention(q, q, q)
-    ops.flash_attention_bshd(q, q, q)
+    with torch.no_grad():        # no autograd, so an input may require grad
+        ops.flash_attention_bshd(q, q.clone().requires_grad_(), q)
     ops.rmsnorm(q, torch.ones(64, device=dev))
     torch.cuda.synchronize()
     assert (fa.launches - n_fa, rn.launches - n_rn) == (2, 1)

@@ -6,6 +6,8 @@ Tolerances are the reference's own (tests/test_kernels.py): 2e-5 in
 float32, 2e-2 in bfloat16 for the norms and attention; 2e-4 for the SSD
 intra-chunk block (float32), whose sums run in another order.
 """
+import shutil
+
 import numpy as np
 import pytest
 
@@ -279,6 +281,73 @@ def test_build_recipe(monkeypatch, tmp_path):
     assert _build.library_path("rmsnorm", nvcc) == paths["rmsnorm"]
     other = str(tmp_path / "other" / "nvcc")
     assert _build.library_path("rmsnorm", other) != paths["rmsnorm"]
+    # An edited header rebuilds the libraries of the sources that include
+    # it, and only those.
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    assert {n: _build.library_path(n, nvcc) for n in _build.SOURCES} == paths
+    for n in ("flash_attention", "rmsnorm"):
+        assert '#include "mma.cuh"' in (csrc / f"{n}.cu").read_text()
+    (csrc / "mma.cuh").write_text((csrc / "mma.cuh").read_text() + "\n")
+    for n in ("flash_attention", "rmsnorm"):
+        assert _build.library_path(n, nvcc) != paths[n]
+    assert _build.library_path("ssd", nvcc) == paths["ssd"]
+
+
+WRAPPERS = {"flash_attention": fa.flash_attention,
+            "flash_attention_bshd": fa.flash_attention_bshd,
+            "rmsnorm": rn.rmsnorm, "gated_rmsnorm": rn.gated_rmsnorm,
+            "ssd_intra_chunk": ssd.ssd_intra_chunk}
+
+
+def _grad_inputs(name):
+    """CPU inputs of the kernel entry point ``name``; the second one
+    requires grad."""
+    q = torch.randn(1, 2, 64, 32)
+    if name.startswith("flash"):
+        return [q, q.clone().requires_grad_(), q]
+    if name == "rmsnorm":
+        return [q, torch.ones(32, requires_grad=True)]
+    if name == "gated_rmsnorm":
+        y = torch.randn(3, 16)
+        return [y, y.clone().requires_grad_(), torch.ones(16)]
+    x, dt, A, B, C = [torch.from_numpy(a) for a in
+                      _ssd_data(1, 16, 2, 8, 2, 4)]
+    return [x, dt.requires_grad_(), A, B, C]
+
+
+@pytest.mark.parametrize("name", sorted(WRAPPERS))
+def test_kernel_wrappers_refuse_autograd(name, monkeypatch):
+    """The kernels have no backward: with grad enabled, an input that
+    requires grad raises before anything is built or launched.  Under
+    no_grad the same call reaches the device check."""
+    def no_build(*_a, **_k):
+        raise AssertionError("a refused call must not build or launch")
+
+    monkeypatch.setattr(_build, "build", no_build)
+    monkeypatch.setattr(_build, "load", no_build)
+    args = _grad_inputs(name)
+    before = (fa.launches, rn.launches, rn.gated_launches, ssd.launches)
+    with pytest.raises(RuntimeError, match="no backward"):
+        WRAPPERS[name](*args)
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="not a CUDA tensor"):
+            WRAPPERS[name](*args)
+    assert (fa.launches, rn.launches, rn.gated_launches,
+            ssd.launches) == before
+
+
+@pytest.mark.parametrize("name", sorted(WRAPPERS))
+def test_cpu_routes_stay_differentiable(name):
+    """On CPU tensors ``kernels.ops`` takes the plain versions, whose
+    outputs carry a gradient back to the input that requires it."""
+    args = _grad_inputs(name)
+    out = getattr(ops, name)(*args)
+    assert out.requires_grad
+    out.float().square().sum().backward()
+    g = args[1].grad
+    assert g is not None and torch.isfinite(g).all() and g.abs().sum() > 0
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
