@@ -9,19 +9,26 @@ It imports nothing of JAX or of the JAX package.  Phases:
 1. the card (name and power limit from nvidia-smi) and the versions;
 2. build the three CUDA sources from ``src/repro_torch/kernels/csrc`` with
    nvcc (flash attention; RMSNorm and gated RMSNorm; SSD intra-chunk), one
-   process per source, started together;
+   process per source, started together, and print each kernel
+   instance's ptxas registers and spills;
 3. hold each of the four kernels against its plain PyTorch version on the
    card on the test sweeps and at the main paths' shapes (tolerance 2e-5 in
    float32 and 2e-2 in bfloat16 for attention and the norms, 2e-4 for the
    SSD block, computed in float32 from either input dtype, as
    |a - b| <= atol + rtol * |b|), with a long sequence (S = T = 1024) for
-   flash attention; check that a bfloat16 flash input that is not 16-byte
-   aligned raises, and that each of the five kernel entry points raises
-   under autograd without launching; then time kernel, plain version and
-   the library call where one exists (device time from torch.profiler's
-   kernel records, with the CUDA-event time of a call beside it) against
-   the data-sheet bound: flash attention at S = 128 and 256, RMSNorm at
-   llsc-100m's rows of 768 and mamba2-370m's of 1024;
+   flash attention, bfloat16 norms with a float32 scale, rows off 16-byte
+   alignment for both norms (their scalar bodies), and the SSD block on
+   the model's strided views (its tensor-core body), on B, C off 16-byte
+   alignment (its CUDA-core body) and at full width on the draw of the
+   CPU emulation of its arithmetic, against float64; check that a bfloat16 flash
+   input that is not 16-byte aligned raises, and that each of the five
+   kernel entry points raises under autograd without launching; then time
+   kernel, plain version and the library call where one exists (device
+   time from torch.profiler's kernel records, with the CUDA-event time of
+   a call beside it) against the data-sheet bound: flash attention at S =
+   128 and 256, RMSNorm at llsc-100m's rows of 768 and mamba2-370m's of
+   1024, the gated norm at 4 and 320 rows of 2048, the SSD block at two
+   chunks of mamba2-370m;
 4. serve llsc-100m at full width and depth in bfloat16 with
    ``flash_kernel`` on through ``ServeEngine``: 8 requests (prompts of 128
    and 256 tokens, 32 new tokens each) through 4 slots; the kernels'
@@ -44,7 +51,8 @@ It imports nothing of JAX or of the JAX package.  Phases:
    (prefills + decode steps), ssd = 48 x prefills and flash = 0;
 8. float32 logits of the card against the CPU over a 320-token prefill
    and 8 greedy decode steps of mamba2-370m at full width (tolerance 1e-4,
-   the same tokens);
+   the same tokens); then the card once more with the port's cumsums
+   accumulated in float32 instead of double, reported beside it;
 9. the serve of 7 under ``torch.profiler``, as 6, with the totals of the
    RMSNorm, gated RMSNorm and SSD kernels;
 10. one ``{"kernels": [...]}`` line (launches of flash and rmsnorm from 4,
@@ -165,10 +173,19 @@ def compare(name, got, want, dtype_name, tol=None):
     ok = bool(torch.all(err <= tol + tol * want.abs()))
     check(torch.isfinite(got).all().item(), f"{name}: non-finite output")
     m = float(err.max())
-    print(f"  {name}: max_abs_err {m:.3e} (atol=rtol={tol}) "
+    share, at = tol_share(err, want, tol)
+    print(f"  {name}: max_abs_err {m:.3e} (atol=rtol={tol}), worst "
+          f"err/(atol+rtol|want|) {share:.4f} at want {at:.4e} "
           f"{'ok' if ok else 'FAIL'}")
     check(ok, f"{name} disagrees with its plain version")
     return m
+
+
+def tol_share(err, want, tol):
+    """The worst err / (tol + tol |want|), and the want where it falls."""
+    share = (err / (tol + tol * want.abs())).flatten()
+    k = int(share.argmax())
+    return float(share[k]), float(want.flatten()[k])
 
 
 def raises(fn, exc, text):
@@ -265,6 +282,14 @@ def phase_kernels(torch, fa, rn, ref, hw):
         s = (randn(768, dtype=torch.float32) * 0.1 + 1.0).to(dtype)
         compare(f"rmsnorm {dn} rows4 D768 at an odd element offset",
                 rn.rmsnorm(x, s), ref.rmsnorm_ref(x, s), dn)
+    # bf16 x with a float32 scale, as the reference's cast_params leaves a
+    # 1-D scale; the vector body, then the scalar one (odd offset)
+    for rows, d, off in ((4, 768, 0), (320, 2048, 0), (4, 768, 1)):
+        x = randn(rows * d + off, dtype=torch.bfloat16)[off:].view(rows, d)
+        s = randn(d) * 0.1 + 1.0
+        compare(f"rmsnorm bfloat16 rows{rows} D{d} float32 scale, element "
+                f"offset {off}", rn.rmsnorm(x, s), ref.rmsnorm_ref(x, s),
+                "bfloat16")
     check_refusals(torch, fa, rn, randn)
 
     # Timings at the main paths' shapes, bf16: the attention of llsc-100m's
@@ -350,20 +375,49 @@ def phase_mamba_kernels(torch, rn, ssd, ref, hw):
     compare(f"gated_rmsnorm bfloat16 (320, 2048) gate row-stride "
             f"{proj.stride(0)}", rn.gated_rmsnorm(y, proj[:, :2048], s),
             ref.gated_rmsnorm_ref(y, proj[:, :2048], s), "bfloat16")
-    # the test sweep (N, l, h, p, g, n), a ragged chunk, then full width:
-    # the two 256-token chunks of a 320-token mamba2-370m prefill
+    # rows one element off 16-byte alignment take the scalar body
+    for dtype in (torch.float32, bf16):
+        dn = str(dtype).split(".")[1]
+        y = randn(4 * 2048 + 1, dtype=dtype)[1:].view(4, 2048)
+        z = randn(4, 2048, dtype=dtype)
+        s = (randn(2048) * 0.1 + 1.0).to(dtype)
+        compare(f"gated_rmsnorm {dn} (4, 2048), y at an odd element offset",
+                rn.gated_rmsnorm(y, z, s), ref.gated_rmsnorm_ref(y, z, s), dn)
+    # bf16 y, z with a float32 scale: vector body, then scalar body
+    for rows, off in ((4, 0), (320, 0), (4, 1)):
+        y = randn(rows * 2048 + off, dtype=bf16)[off:].view(rows, 2048)
+        z = randn(rows, 2048, dtype=bf16)
+        s = randn(2048) * 0.1 + 1.0
+        compare(f"gated_rmsnorm bfloat16 ({rows}, 2048) float32 scale, "
+                f"element offset {off}", rn.gated_rmsnorm(y, z, s),
+                ref.gated_rmsnorm_ref(y, z, s), "bfloat16")
+    # the test sweep (N, l, h, p, g, n), ragged chunks (40: one key tile;
+    # 200 and 100: several, the last partial), p = 128, an odd number of
+    # heads a group (3: one head a block), then full width: the two
+    # 256-token chunks of a 320-token mamba2-370m prefill
     ssd_cases = [(dtype, case) for dtype in (torch.float32, bf16)
                  for case in ((1, 32, 4, 16, 1, 8), (2, 64, 8, 32, 2, 16),
-                              (1, 16, 2, 8, 2, 4), (3, 40, 4, 64, 1, 128))]
+                              (1, 16, 2, 8, 2, 4), (3, 40, 4, 64, 1, 128),
+                              (1, 200, 4, 128, 1, 64),
+                              (2, 100, 6, 64, 2, 128))]
     ssd_cases.append((bf16, (2, 256, 32, 64, 1, 128)))
     for dtype, case in ssd_cases:
         dn = str(dtype).split(".")[1]
         x, dt_, A, B, C = ssd_inputs(*case, dtype)
+        got = ssd.ssd_intra_chunk(x, dt_, A, B, C, out_dtype=torch.float32)
         errs[("ssd", dn, case)] = compare(
-            f"ssd_intra_chunk {dn} in, float32 out, N,l,h,p,g,n={case}",
-            ssd.ssd_intra_chunk(x, dt_, A, B, C, out_dtype=torch.float32),
+            f"ssd_intra_chunk {dn} in, float32 out, N,l,h,p,g,n={case} "
+            f"({ssd_body(ssd)})", got,
             ref.ssd_intra_chunk_ref(x, dt_, A, B, C, out_dtype=torch.float32),
             "float32", tol=SSD_TOL)
+        # bf16 with p and n multiples of 8 takes the tensor-core body, with
+        # two heads a block where the heads of a group pair up, else one
+        _, _, h, p, g, n = case
+        mma = dtype == bf16 and p % 8 == 0 and n % 8 == 0
+        hb = (1 if (h // g) % 2 else 2) if mma else 0
+        check(ssd.heads_per_block == hb, f"ssd {dn} {case}: took "
+              f"{ssd_body(ssd)}, not {hb} heads a block")
+    ssd_numerics(torch, ssd, ref)
     x, dt_, A, B, C = ssd_inputs(2, 256, 32, 64, 1, 128, bf16)
     compare("ssd_intra_chunk bfloat16 in and out, full width",
             ssd.ssd_intra_chunk(x, dt_, A, B, C),
@@ -393,8 +447,9 @@ def phase_mamba_kernels(torch, rn, ssd, ref, hw):
                  + h * pairs * (2 * p + 3)     # decay, weight, W @ xdt
                  + l * h * (p + 2))            # x * dt, dt * A, cumsum
     bound, by = hw.bound_s(n_bytes, flops, bf16)
+    ssd.ssd_intra_chunk(x, dt_, A, B, C, out_dtype=torch.float32)
     t = timed(f"ssd_intra_chunk bf16 in, fp32 out, N{N} l{l} h{h} p{p} g{g} "
-              f"n{n} (no library call)", dict(
+              f"n{n}, {ssd_body(ssd)} (no library call)", dict(
                   ms=lambda: ssd.ssd_intra_chunk(x, dt_, A, B, C,
                                                  out_dtype=torch.float32),
                   plain_ms=lambda: ref.ssd_intra_chunk_ref(
@@ -410,19 +465,89 @@ def phase_mamba_kernels(torch, rn, ssd, ref, hw):
     Cs = xbc[..., h * p + g * n:].unflatten(-1, (g, n))
     label = (f"ssd_intra_chunk bf16 in, fp32 out, N{N} l{l} h{h} p{p} g{g} "
              f"n{n}, x/B/C views of one buffer (row stride {xbc.stride(1)})")
-    compare(label, ssd.ssd_intra_chunk(xs, dt_, A, Bs, Cs,
-                                       out_dtype=torch.float32),
+    got = ssd.ssd_intra_chunk(xs, dt_, A, Bs, Cs, out_dtype=torch.float32)
+    check(ssd.heads_per_block > 0, "the model's views missed the "
+          "tensor-core body")
+    compare(f"{label} ({ssd_body(ssd)})", got,
             ref.ssd_intra_chunk_ref(xs, dt_, A, Bs, Cs,
                                     out_dtype=torch.float32),
             "float32", tol=SSD_TOL)
     timed(label, dict(ms=lambda: ssd.ssd_intra_chunk(
         xs, dt_, A, Bs, Cs, out_dtype=torch.float32)))
+    # B and C one element off 16-byte alignment take the CUDA-core body
+    xbc = randn(N, l, h * p + 2 * g * n + 1, dtype=bf16)
+    Bo = xbc[..., h * p + 1:h * p + g * n + 1].unflatten(-1, (g, n))
+    Co = xbc[..., h * p + g * n + 1:].unflatten(-1, (g, n))
+    got = ssd.ssd_intra_chunk(xs, dt_, A, Bo, Co, out_dtype=torch.float32)
+    check(ssd.heads_per_block == 0, "unaligned B, C took the tensor-core "
+          "body")
+    compare(f"ssd_intra_chunk bf16 in, fp32 out, full width, B/C at an odd "
+            f"element offset ({ssd_body(ssd)})", got,
+            ref.ssd_intra_chunk_ref(xs, dt_, A, Bo, Co,
+                                    out_dtype=torch.float32),
+            "float32", tol=SSD_TOL)
     rows.append(dict(name="ssd_intra_chunk", route="cuda",
                      source="src/repro_torch/kernels/csrc/ssd.cu",
                      replaces="src/repro/kernels/ssd.py:27",
                      max_abs_err=errs[("ssd", "bfloat16", (N, l, h, p, g, n))],
                      bound_ms=bound * 1e3, bound_by=by, **t))
     return rows
+
+
+def ssd_numerics(torch, ssd, ref):
+    """The SSD block at full width on the draw of the CPU emulation of its
+    tensor-core arithmetic (numpy seed 17, in the order of
+    tests/test_torch_kernels.py::_ssd_tensor_core_emulation): the kernel,
+    the plain version on the card and the plain version on the CPU, each
+    against float64 on the CPU (from the same fp32 cumsums), as shares of
+    SSD_TOL; then the kernel against each plain version.  The emulation's
+    share is taken against the CPU's plain version."""
+    import numpy as np
+
+    F = torch.nn.functional
+    N, l, h, p, g, n = 2, 256, 32, 64, 1, 128
+    rng = np.random.default_rng(17)
+
+    def draw(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+
+    x = draw(N, l, h, p)
+    dt = F.softplus(draw(N, l, h))
+    A = -torch.exp(draw(h) * 0.3)
+    B, C = draw(N, l, g, n), draw(N, l, g, n)
+    x, B, C = (t.to(torch.bfloat16) for t in (x, B, C))
+    cs = ref.cumsum_f32((dt * A).transpose(1, 2), -1).double()   # [N,h,l]
+    idx = torch.arange(l)
+    decay = torch.where(idx[:, None] >= idx[None, :],
+                        cs[..., :, None] - cs[..., None, :],
+                        torch.full((), -float("inf"), dtype=torch.float64))
+    cb = torch.einsum("cign,cjgn->cgij", C.double(), B.double())
+    w = (cb.repeat_interleave(h // g, dim=1) * torch.exp(decay)
+         * dt.double().transpose(1, 2)[:, :, None, :])            # [N,h,i,j]
+    exact = (w @ x.double().transpose(1, 2)).transpose(1, 2)      # [N,l,h,p]
+    dev = [t.cuda() for t in (x, dt, A, B, C)]
+    kernel = ssd.ssd_intra_chunk(*dev, out_dtype=torch.float32).cpu()
+    check(ssd.heads_per_block == 2, "the emulation's draw missed the "
+          "tensor-core body")
+    plain = {"card": ref.ssd_intra_chunk_ref(*dev, out_dtype=torch.float32)
+             .cpu(),
+             "CPU": ref.ssd_intra_chunk_ref(x, dt, A, B, C,
+                                            out_dtype=torch.float32)}
+    print("  ssd_intra_chunk full width on the CPU emulation's draw "
+          "(numpy seed 17), worst err/(atol+rtol|want|) at SSD_TOL:")
+    for name, y in (("kernel", kernel), ("card plain", plain["card"]),
+                    ("CPU plain", plain["CPU"])):
+        share, at = tol_share((y.double() - exact).abs(), exact, SSD_TOL)
+        print(f"    {name} vs float64: {share:.4f} at want {at:.4e}")
+    for where, want in plain.items():
+        compare(f"  kernel vs {where} plain", kernel, want, "float32",
+                tol=SSD_TOL)
+
+
+def ssd_body(ssd):
+    """Which body of the SSD kernel the last launch took."""
+    hb = ssd.heads_per_block
+    return f"tensor cores, {hb} heads a block" if hb else "CUDA cores"
 
 
 def make_requests(engine_mod, vocab, n, seed, lens):
@@ -486,9 +611,9 @@ def report_serve(torch, np, eng, stats, counts, expect, cfg, registry):
               f"request {c.request_id}: bad completion")
     pub = registry.entries()[f"chip_smoke:{cfg.name}"]
     d = stats["decision"]
-    print(f"LLload registry: duty {pub.duty_cycle:.6f} of the H100 bf16 "
-          f"peak, step {pub.step_time_s * 1e3:.3f} ms, device memory "
-          f"{pub.hbm_used_gb:.3f} / {pub.hbm_total_gb:.3f} GB; overload "
+    print(f"LLload registry: duty {pub.duty_cycle:.6f} of the H100 "
+          f"{cfg.dtype} peak, step {pub.step_time_s * 1e3:.3f} ms, device "
+          f"memory {pub.hbm_used_gb:.3f} / {pub.hbm_total_gb:.3f} GB; overload "
           f"controller: slots 4 -> {d.nppn} ({d.reason})")
 
 
@@ -498,14 +623,28 @@ def _to(tree, dev):
     return tree.to(dev)
 
 
+def cumsum_f32_float(x, dim):
+    """A float32 cumsum accumulated in float32, as the reference takes it
+    (on the card; the CPU's float32 cumsum accumulates in double)."""
+    import torch
+
+    return torch.cumsum(x, dim, dtype=torch.float32)
+
+
 def card_vs_cpu(torch, np, model_lib, perf, time_axis, cfg, S,
-                scalar_norm=False):
+                scalar_norm=False, f32_cumsum=False):
     """Phases 5 and 8: float32 logits of one seed's weights on the card and
     on the CPU over an S-token prefill and 8 greedy decode steps, each side
     choosing its own tokens.  With ``scalar_norm`` the card runs once more
     with every RMSNorm input copied one element off 16-byte alignment, so
-    that the norm takes its scalar body instead of the vector one."""
+    that the norm takes its scalar body instead of the vector one.  With
+    ``f32_cumsum`` the card runs once more with the port's cumsums
+    (``models.ssm.cumsum_f32``, ``kernels.ref.cumsum_f32``) accumulated in
+    float32 instead of double, to measure what that costs; the SSD kernel's
+    own scan stays in double.  That run is reported, not checked."""
+    from repro_torch.kernels import ref
     from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.models import ssm
 
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     p_cpu = model_lib.init_params(cfg, torch.Generator().manual_seed(0),
@@ -533,25 +672,37 @@ def card_vs_cpu(torch, np, model_lib, perf, time_axis, cfg, S,
                                                       cache, S + step)
         return logits_all
 
-    def compare(card, cpu, quiet=False):
-        worst = 0.0
+    def compare(card, cpu, quiet=False, strict=True):
+        worst, all_same = 0.0, True
         for i, (a, b) in enumerate(zip(card, cpu)):
             err = float((a - b).abs().max())
             same = bool(torch.equal(a.argmax(-1), b.argmax(-1)))
-            worst = max(worst, err)
+            worst, all_same = max(worst, err), all_same and same
             if not quiet:
                 print(f"  {'prefill' if i == 0 else f'decode {i}'}: max |card "
                       f"- cpu| {err:.3e}, same greedy token: {same}")
             check(torch.isfinite(a).all().item(), "non-finite logits on the "
                   "card")
-            check(same, "the card and the CPU chose different tokens")
-        check(worst <= 1e-4, f"card vs CPU logits differ by {worst:.3e} > "
-              "1e-4")
-        return worst
+            check(same or not strict, "the card and the CPU chose different "
+                  "tokens")
+        check(worst <= 1e-4 or not strict, f"card vs CPU logits differ by "
+              f"{worst:.3e} > 1e-4")
+        return worst, all_same
 
     cpu = run("cpu")
-    worst = compare(run("cuda"), cpu)
+    worst, _ = compare(run("cuda"), cpu)
     print(f"  worst {worst:.3e} (tol 1e-4)")
+    if f32_cumsum:
+        saved = ssm.cumsum_f32, ref.cumsum_f32
+        ssm.cumsum_f32 = ref.cumsum_f32 = cumsum_f32_float
+        try:
+            worst_f, same = compare(run("cuda"), cpu, quiet=True, strict=False)
+        finally:
+            ssm.cumsum_f32, ref.cumsum_f32 = saved
+        print(f"  with float32-accumulated cumsums on the card: worst "
+              f"{worst_f:.3e} ({'within' if worst_f <= 1e-4 else 'OVER'} "
+              f"1e-4; same greedy tokens: {same}); with double cumsums "
+              f"(above): {worst:.3e}")
     if not scalar_norm:
         return
     vector_body = rn.rmsnorm
@@ -564,7 +715,7 @@ def card_vs_cpu(torch, np, model_lib, perf, time_axis, cfg, S,
 
     rn.rmsnorm = off_alignment
     try:
-        worst_s = compare(run("cuda"), cpu, quiet=True)
+        worst_s, _ = compare(run("cuda"), cpu, quiet=True)
     finally:
         rn.rmsnorm = vector_body
     print(f"  every RMSNorm on its scalar body: worst {worst_s:.3e}; on the "
@@ -574,8 +725,9 @@ def card_vs_cpu(torch, np, model_lib, perf, time_axis, cfg, S,
 # The hand-written kernels, by their names in a trace.
 KERNEL_NAMES = {"flash_attention": re.compile(r"flash_fwd"),
                 "rmsnorm": re.compile(r"(?<!\w)rmsnorm_(vec_)?kernel"),
-                "gated_rmsnorm": re.compile(r"gated_rmsnorm_kernel"),
-                "ssd_intra_chunk": re.compile(r"ssd_intra_chunk_kernel")}
+                "gated_rmsnorm": re.compile(r"gated_rmsnorm_(vec_)?kernel"),
+                "ssd_intra_chunk": re.compile(
+                    r"ssd_intra_chunk_(mma_)?kernel")}
 
 
 def report_profile(eng_p, stats_p, prof, serve_wall, untraced, kernels):
@@ -714,7 +866,8 @@ def main() -> int:
     mamba_wall = stats["wall_s"]
 
     print("=== 8. card vs CPU, mamba2-370m full width, float32 ===")
-    card_vs_cpu(torch, np, model_lib, perf, engine.TIME_AXIS_LEAVES, cfg, 320)
+    card_vs_cpu(torch, np, model_lib, perf, engine.TIME_AXIS_LEAVES, cfg, 320,
+                f32_cumsum=True)
 
     print("=== 9. the serve of phase 7 under torch.profiler ===")
     report_profile(*phase_serve(torch, cfg, params, engine, counters, perf,

@@ -33,21 +33,34 @@
 //   * Every other width, or a row that is not 16-byte aligned, takes the
 //     scalar body (`rmsnorm_kernel`): one warp walks one row, four rows a
 //     block, reading its row a second time from L1/L2 for the output.
-//   * The gated norm's rows are wider (2048 in mamba2-370m), and a warp
-//     that walks one of them waits on one memory latency per element (15
-//     us a launch on an H100, whatever the row count).  So it gives each
-//     row a block of 256 threads: a thread loads its (up to 16) elements of
-//     y and z into registers with every load issued before the first use,
-//     keeps h = y * silu(z) there, and the block sums the squares with
-//     shuffles and 8 partial sums in shared memory.  y and z are read once;
-//     rows of up to 4096 elements are taken.  Its gate z is a strided slice
-//     of the input projection in the model, so y and z each take a row
-//     stride (elements between rows; the last dimension is contiguous).
+//   * The gated norm's vector body (`gated_rmsnorm_vec_kernel`) is the
+//     same cure: one block per row, y, z and the scale loaded as 16-byte
+//     vectors into registers with every load issued before the first use,
+//     h = y * silu(z) kept there, the squares summed in fp32 by shuffles
+//     and per-warp partial sums, and 16-byte stores.  A row gets up to 8
+//     warps of one vector a thread before a thread takes a second, the
+//     shortest path for each thread: d = 2048 in bf16 (mamba2-370m) is 8
+//     warps of one vector each.  Its gate z is a strided slice of the
+//     input projection in the model, so y and z each take a row stride
+//     (elements between rows; the last dimension is contiguous); the
+//     model's gate has a row stride of 4384 elements, a whole number of
+//     vectors, so it takes this body.
+//   * The gated norm's scalar body (`gated_rmsnorm_kernel`), for widths
+//     that are not a whole number of vectors and rows whose y or z pointer
+//     or row stride is not 16-byte aligned: a block of 256 threads a row,
+//     each holding up to 16 elements of y and z loaded with every load
+//     issued first (a warp walking a row of 2048 waited on one memory
+//     latency per element, 15 us a launch).  Rows of up to 4096 elements.
+//     It took 3.9 / 5.2 us at 4 / 320 rows of 2048 on an H100.
 // Statistics are fp32, and x * r * scale is computed in fp32 before the
-// cast back, in the reference's order.  ptxas (sm_90a, CUDA 12.8): the
-// vector body 26-51 registers, no spills.
-// x, y, z, scale and out share one dtype, float32 or bfloat16; out is
-// contiguous [rows, D].
+// cast back, in the reference's order (repro/models/layers.py:34,
+// repro/models/ssm.py:181).
+// Dtypes: x, y, z and out share one dtype, float32 or bfloat16, and the
+// scale is in that dtype or, with bfloat16 activations, float32: the
+// reference keeps a 1-D scale in fp32 under its cast_params
+// (repro/train/train_step.py:30) and applies it in fp32, as here.  out is
+// contiguous [rows, D].  ptxas (sm_90a, CUDA 12.8): every instance 23-80
+// registers, no spills.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -59,9 +72,9 @@
 namespace {
 
 constexpr int WARPS = 4;                // scalar body: rows per block
-constexpr int VEC_MAX_V = 4;            // vector body: vectors a thread holds
+constexpr int VEC_MAX_V = 4;            // vector bodies: vectors a thread holds
 constexpr int VEC_MAX_W = 8;            // and warps a row: d <= 4096 in bf16
-constexpr int GATED_THREADS = 256;      // one block per gated row
+constexpr int GATED_THREADS = 256;      // gated scalar body: a block a row
 constexpr int GATED_MAX_V = 16;         // values a thread holds: d <= 4096
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -77,9 +90,23 @@ from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-template <typename T>
+// z * sigmoid(z) in fp32 for activations of type T.  For bfloat16, from
+// the hardware's exp2 and reciprocal (__expf, __fdividef): a few ulp of
+// fp32, far below the output's rounding to bf16, where the accurate expf
+// and division are tens of instructions an element on the path of every
+// thread.  For float32, the exactness path, the accurate expf and
+// division.  0 where exp(-z) overflows.
+template <typename T> __device__ __forceinline__ float silu(float z) {
+  if constexpr (sizeof(T) == sizeof(float))
+    return z / (1.f + expf(-z));
+  else
+    return __fdividef(z, 1.f + __expf(-z));
+}
+
+// T: the activations' dtype; S: the scale's (T, or float with a bf16 T).
+template <typename T, typename S>
 __global__ void __launch_bounds__(WARPS * 32)
-rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ scale,
+rmsnorm_kernel(const T* __restrict__ x, const S* __restrict__ scale,
                T* __restrict__ out, int rows, int d, float eps) {
   const int lane = threadIdx.x % 32;
   const int row = blockIdx.x * WARPS + threadIdx.x / 32;
@@ -99,20 +126,45 @@ rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ scale,
     orow[i] = from_f32<T>(to_f32(xr[i]) * r * to_f32(scale[i]));
 }
 
-// 16 bytes of T as fp32 values, and back (bf16 rounded to nearest even).
-__device__ __forceinline__ void unpack(const uint4& u, float (&f)[8]) {
-  const unsigned w[4] = {u.x, u.y, u.z, u.w};
+// E values of S held as raw 16-byte words (E * sizeof(S) / 16 of them):
+// the elements of one 16-byte vector of the activations.
+template <typename S, int E>
+struct Vec {
+  uint4 w[E * sizeof(S) / 16];
+};
+
+// Vector i of E values at row, or zeros when valid is false.
+template <typename S, int E>
+__device__ __forceinline__ Vec<S, E> load_vec(const S* row, int i,
+                                              bool valid) {
+  Vec<S, E> v;
+  const uint4* p = reinterpret_cast<const uint4*>(row + static_cast<long long>(i) * E);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {      // a bf16 is the high half of an fp32
+  for (int k = 0; k < E * static_cast<int>(sizeof(S)) / 16; ++k)
+    v.w[k] = valid ? p[k] : make_uint4(0, 0, 0, 0);
+  return v;
+}
+
+// The values as fp32 (a bf16 is the high half of an fp32), and back
+// (bf16 rounded to nearest even).
+__device__ __forceinline__ void unpack(const Vec<__nv_bfloat16, 8>& v,
+                                       float (&f)[8]) {
+  const unsigned w[4] = {v.w[0].x, v.w[0].y, v.w[0].z, v.w[0].w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
     f[2 * i] = __uint_as_float(w[i] << 16);
     f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
   }
 }
-__device__ __forceinline__ void unpack(const uint4& u, float (&f)[4]) {
-  f[0] = __uint_as_float(u.x);
-  f[1] = __uint_as_float(u.y);
-  f[2] = __uint_as_float(u.z);
-  f[3] = __uint_as_float(u.w);
+template <int E>
+__device__ __forceinline__ void unpack(const Vec<float, E>& v, float (&f)[E]) {
+#pragma unroll
+  for (int k = 0; k < E / 4; ++k) {
+    f[4 * k] = __uint_as_float(v.w[k].x);
+    f[4 * k + 1] = __uint_as_float(v.w[k].y);
+    f[4 * k + 2] = __uint_as_float(v.w[k].z);
+    f[4 * k + 3] = __uint_as_float(v.w[k].w);
+  }
 }
 __device__ __forceinline__ uint4 pack(const float (&f)[8]) {
   using mma::pack_bf16;
@@ -124,32 +176,9 @@ __device__ __forceinline__ uint4 pack(const float (&f)[4]) {
                     __float_as_uint(f[2]), __float_as_uint(f[3]));
 }
 
-// One row per block, W warps a row, V 16-byte vectors a thread (vector i of
-// the row is thread i % (32 W), slot i / (32 W)).
-template <typename T, int W, int V>
-__global__ void __launch_bounds__(W * 32)
-rmsnorm_vec_kernel(const T* __restrict__ x, const T* __restrict__ scale,
-                   T* __restrict__ out, int d, float eps) {
-  constexpr int E = 16 / sizeof(T);  // elements a vector
-  const int nvec = d / E;
-  const long long row = blockIdx.x;
-  const uint4* xr = reinterpret_cast<const uint4*>(x + row * d);
-  const uint4* sr = reinterpret_cast<const uint4*>(scale);
-  uint4 xv[V], sv[V];
-#pragma unroll
-  for (int v = 0; v < V; ++v) {      // every load issued first
-    const int i = threadIdx.x + v * W * 32;
-    xv[v] = i < nvec ? xr[i] : make_uint4(0, 0, 0, 0);
-    sv[v] = i < nvec ? sr[i] : make_uint4(0, 0, 0, 0);
-  }
-  float ss = 0.f;
-#pragma unroll
-  for (int v = 0; v < V; ++v) {
-    float f[E];
-    unpack(xv[v], f);
-#pragma unroll
-    for (int e = 0; e < E; ++e) ss += f[e] * f[e];
-  }
+// The sum of ss over the block's W warps (shuffles, then W partial sums).
+template <int W>
+__device__ __forceinline__ float block_sum(float ss) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     ss += __shfl_xor_sync(0xffffffffu, ss, off);
@@ -161,7 +190,35 @@ rmsnorm_vec_kernel(const T* __restrict__ x, const T* __restrict__ scale,
 #pragma unroll
     for (int w = 0; w < W; ++w) ss += warp_ss[w];
   }
-  const float r = rsqrtf(ss / static_cast<float>(d) + eps);
+  return ss;
+}
+
+// One row per block, W warps a row, V 16-byte vectors of x a thread
+// (vector i of the row is thread i % (32 W), slot i / (32 W)).
+template <typename T, typename S, int W, int V>
+__global__ void __launch_bounds__(W * 32)
+rmsnorm_vec_kernel(const T* __restrict__ x, const S* __restrict__ scale,
+                   T* __restrict__ out, int d, float eps) {
+  constexpr int E = 16 / sizeof(T);  // elements a vector
+  const int nvec = d / E;
+  const long long row = blockIdx.x;
+  Vec<T, E> xv[V];
+  Vec<S, E> sv[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) {      // every load issued first
+    const int i = threadIdx.x + v * W * 32;
+    xv[v] = load_vec<T, E>(x + row * d, i, i < nvec);
+    sv[v] = load_vec<S, E>(scale, i, i < nvec);
+  }
+  float ss = 0.f;
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    float f[E];
+    unpack(xv[v], f);
+#pragma unroll
+    for (int e = 0; e < E; ++e) ss += f[e] * f[e];
+  }
+  const float r = rsqrtf(block_sum<W>(ss) / static_cast<float>(d) + eps);
   uint4* orow = reinterpret_cast<uint4*>(out + row * d);
 #pragma unroll
   for (int v = 0; v < V; ++v) {
@@ -177,26 +234,27 @@ rmsnorm_vec_kernel(const T* __restrict__ x, const T* __restrict__ scale,
   }
 }
 
-template <typename T, int W, int V>
+template <typename T, typename S, int W, int V>
 cudaError_t launch_vec(const void* x, const void* scale, void* out, int rows,
                        int d, float eps, cudaStream_t stream) {
-  rmsnorm_vec_kernel<T, W, V><<<rows, W * 32, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(scale),
+  rmsnorm_vec_kernel<T, S, W, V><<<rows, W * 32, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const S*>(scale),
       static_cast<T*>(out), d, eps);
   return cudaGetLastError();
 }
 
-template <typename T>
+bool aligned16(const void* p) {
+  return reinterpret_cast<std::uintptr_t>(p) % 16 == 0;
+}
+
+template <typename T, typename S>
 cudaError_t launch(const void* x, const void* scale, void* out, int rows,
                    int d, float eps, cudaStream_t stream) {
   constexpr int E = 16 / sizeof(T);
   const int nvec = d / E;
-  const bool vec =
-      d % E == 0 && nvec <= VEC_MAX_W * 32 * VEC_MAX_V &&
-      (reinterpret_cast<std::uintptr_t>(x) | reinterpret_cast<std::uintptr_t>(
-           scale) | reinterpret_cast<std::uintptr_t>(out)) % 16 == 0;
-  if (vec) {                         // W warps a row, V vectors a thread
-#define VEC(W, V) launch_vec<T, W, V>(x, scale, out, rows, d, eps, stream)
+  if (d % E == 0 && nvec <= VEC_MAX_W * 32 * VEC_MAX_V && aligned16(x) &&
+      aligned16(scale) && aligned16(out)) {  // W warps a row, V vectors a thread
+#define VEC(W, V) launch_vec<T, S, W, V>(x, scale, out, rows, d, eps, stream)
     if (nvec <= 32) return VEC(1, 1);
     if (nvec <= 64) return VEC(1, 2);
     if (nvec <= 96) return VEC(1, 3);
@@ -207,21 +265,69 @@ cudaError_t launch(const void* x, const void* scale, void* out, int rows,
 #undef VEC
   }
   const int blocks = (rows + WARPS - 1) / WARPS;
-  rmsnorm_kernel<T><<<blocks, WARPS * 32, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(scale),
+  rmsnorm_kernel<T, S><<<blocks, WARPS * 32, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const S*>(scale),
       static_cast<T*>(out), rows, d, eps);
   return cudaGetLastError();
 }
 
-template <typename T>
+// The gated norm's vector body: one row per block, W warps a row, V
+// 16-byte vectors of y, of z and of the scale a thread, all loaded before
+// the first use; h = y * silu(z) stays in registers.
+template <typename T, typename S, int W, int V>
+__global__ void __launch_bounds__(W * 32)
+gated_rmsnorm_vec_kernel(const T* __restrict__ y, const T* __restrict__ z,
+                         const S* __restrict__ scale, T* __restrict__ out,
+                         int d, long long y_stride, long long z_stride,
+                         float eps) {
+  constexpr int E = 16 / sizeof(T);
+  const int nvec = d / E;
+  const long long row = blockIdx.x;
+  Vec<T, E> yv[V], zv[V];
+  Vec<S, E> sv[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) {      // every load issued first
+    const int i = threadIdx.x + v * W * 32;
+    yv[v] = load_vec<T, E>(y + row * y_stride, i, i < nvec);
+    zv[v] = load_vec<T, E>(z + row * z_stride, i, i < nvec);
+    sv[v] = load_vec<S, E>(scale, i, i < nvec);
+  }
+  float hv[V][E];
+  float ss = 0.f;
+#pragma unroll
+  for (int v = 0; v < V; ++v) {      // h = y * silu(z); 0 past d
+    float zf[E];
+    unpack(yv[v], hv[v]);
+    unpack(zv[v], zf);
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      hv[v][e] *= silu<T>(zf[e]);
+      ss += hv[v][e] * hv[v][e];
+    }
+  }
+  const float r = rsqrtf(block_sum<W>(ss) / static_cast<float>(d) + eps);
+  uint4* orow = reinterpret_cast<uint4*>(out + row * d);
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    const int i = threadIdx.x + v * W * 32;
+    if (i < nvec) {
+      float s[E];
+      unpack(sv[v], s);
+#pragma unroll
+      for (int e = 0; e < E; ++e) hv[v][e] = hv[v][e] * r * s[e];
+      orow[i] = pack(hv[v]);
+    }
+  }
+}
+
+// The gated norm's scalar body, for rows the vector body does not take:
+// a block of 256 threads a row, up to 16 values a thread.
+template <typename T, typename S>
 __global__ void __launch_bounds__(GATED_THREADS)
 gated_rmsnorm_kernel(const T* __restrict__ y, const T* __restrict__ z,
-                     const T* __restrict__ scale, T* __restrict__ out,
+                     const S* __restrict__ scale, T* __restrict__ out,
                      int d, long long y_stride, long long z_stride,
                      float eps) {
-  __shared__ float warp_ss[GATED_THREADS / 32];
-  const int lane = threadIdx.x % 32;
-  const int warp = threadIdx.x / 32;
   const long long row = blockIdx.x;
   const T* yr = y + row * y_stride;
   const T* zr = z + row * z_stride;
@@ -235,18 +341,11 @@ gated_rmsnorm_kernel(const T* __restrict__ y, const T* __restrict__ z,
   float ss = 0.f;
 #pragma unroll
   for (int v = 0; v < GATED_MAX_V; ++v) {  // h = y * silu(z); 0 past d
-    hv[v] *= zv[v] / (1.f + expf(-zv[v]));
+    hv[v] *= silu<T>(zv[v]);
     ss += hv[v] * hv[v];
   }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    ss += __shfl_xor_sync(0xffffffffu, ss, off);
-  if (lane == 0) warp_ss[warp] = ss;
-  __syncthreads();
-  ss = 0.f;
-#pragma unroll
-  for (int w = 0; w < GATED_THREADS / 32; ++w) ss += warp_ss[w];
-  const float r = rsqrtf(ss / static_cast<float>(d) + eps);
+  const float r = rsqrtf(block_sum<GATED_THREADS / 32>(ss) /
+                         static_cast<float>(d) + eps);
   T* orow = out + row * d;
 #pragma unroll
   for (int v = 0; v < GATED_MAX_V; ++v) {
@@ -255,47 +354,78 @@ gated_rmsnorm_kernel(const T* __restrict__ y, const T* __restrict__ z,
   }
 }
 
-template <typename T>
+template <typename T, typename S, int W, int V>
+cudaError_t launch_gated_vec(const void* y, const void* z, const void* scale,
+                             void* out, int rows, int d, long long y_stride,
+                             long long z_stride, float eps,
+                             cudaStream_t stream) {
+  gated_rmsnorm_vec_kernel<T, S, W, V><<<rows, W * 32, 0, stream>>>(
+      static_cast<const T*>(y), static_cast<const T*>(z),
+      static_cast<const S*>(scale), static_cast<T*>(out), d, y_stride,
+      z_stride, eps);
+  return cudaGetLastError();
+}
+
+template <typename T, typename S>
 cudaError_t launch_gated(const void* y, const void* z, const void* scale,
                          void* out, int rows, int d, long long y_stride,
                          long long z_stride, float eps, cudaStream_t stream) {
-  gated_rmsnorm_kernel<T><<<rows, GATED_THREADS, 0, stream>>>(
+  constexpr int E = 16 / sizeof(T);
+  const int nvec = d / E;
+  if (d % E == 0 && y_stride % E == 0 && z_stride % E == 0 &&
+      nvec <= VEC_MAX_W * 32 * VEC_MAX_V && aligned16(y) && aligned16(z) &&
+      aligned16(scale) && aligned16(out)) {
+#define VEC(W, V) launch_gated_vec<T, S, W, V>(y, z, scale, out, rows, d, \
+                                               y_stride, z_stride, eps, stream)
+    if (nvec <= 32) return VEC(1, 1);
+    if (nvec <= 64) return VEC(2, 1);
+    if (nvec <= 128) return VEC(4, 1);
+    if (nvec <= 256) return VEC(8, 1);
+    if (nvec <= 512) return VEC(8, 2);
+    return VEC(8, 4);
+#undef VEC
+  }
+  gated_rmsnorm_kernel<T, S><<<rows, GATED_THREADS, 0, stream>>>(
       static_cast<const T*>(y), static_cast<const T*>(z),
-      static_cast<const T*>(scale), static_cast<T*>(out), d, y_stride,
+      static_cast<const S*>(scale), static_cast<T*>(out), d, y_stride,
       z_stride, eps);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// x, out [rows, d] contiguous; scale [d] in x's dtype.  bf16: 1 for
-// bfloat16, 0 for float32.  Returns a cudaError_t (0 on success).
+// x, out [rows, d] contiguous; scale [d].  bf16: 1 for bfloat16 x and out,
+// 0 for float32; scale_f32: 1 for a float32 scale with bfloat16 x, 0 for a
+// scale in x's dtype.  Returns a cudaError_t (0 on success).
 extern "C" int rmsnorm_fwd(const void* x, const void* scale, void* out,
-                           int bf16, int rows, int d, float eps,
-                           void* stream) {
-  if (rows <= 0 || d <= 0) return cudaErrorInvalidValue;
+                           int bf16, int scale_f32, int rows, int d,
+                           float eps, void* stream) {
+  if (rows <= 0 || d <= 0 || (scale_f32 && !bf16))
+    return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return launch<__nv_bfloat16>(x, scale, out, rows, d, eps, st);
-  return launch<float>(x, scale, out, rows, d, eps, st);
+  if (!bf16) return launch<float, float>(x, scale, out, rows, d, eps, st);
+  if (scale_f32)
+    return launch<__nv_bfloat16, float>(x, scale, out, rows, d, eps, st);
+  return launch<__nv_bfloat16, __nv_bfloat16>(x, scale, out, rows, d, eps,
+                                              st);
 }
 
 // y [rows, d] with row stride y_stride, z [rows, d] with row stride
 // z_stride (elements; the last dimension contiguous), scale [d], out
-// [rows, d] contiguous, all in one dtype.  bf16: 1 for bfloat16, 0 for
-// float32.  Returns a cudaError_t (0 on success).
+// [rows, d] contiguous.  bf16: 1 for bfloat16 y, z and out, 0 for float32;
+// scale_f32 as for rmsnorm_fwd.  Returns a cudaError_t (0 on success).
 extern "C" int gated_rmsnorm_fwd(const void* y, const void* z,
                                  const void* scale, void* out, int bf16,
-                                 int rows, int d, long long y_stride,
-                                 long long z_stride, float eps,
-                                 void* stream) {
+                                 int scale_f32, int rows, int d,
+                                 long long y_stride, long long z_stride,
+                                 float eps, void* stream) {
   if (rows <= 0 || d <= 0 || d > GATED_THREADS * GATED_MAX_V || y_stride < d
-      || z_stride < d)
+      || z_stride < d || (scale_f32 && !bf16))
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return launch_gated<__nv_bfloat16>(y, z, scale, out, rows, d, y_stride,
-                                       z_stride, eps, st);
-  return launch_gated<float>(y, z, scale, out, rows, d, y_stride, z_stride,
-                             eps, st);
+#define GATED_ARGS y, z, scale, out, rows, d, y_stride, z_stride, eps, st
+  if (!bf16) return launch_gated<float, float>(GATED_ARGS);
+  if (scale_f32) return launch_gated<__nv_bfloat16, float>(GATED_ARGS);
+  return launch_gated<__nv_bfloat16, __nv_bfloat16>(GATED_ARGS);
+#undef GATED_ARGS
 }

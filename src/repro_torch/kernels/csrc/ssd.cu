@@ -3,51 +3,130 @@
 //   y[c, i, h, :] = sum_{j <= i} (C[c, i, g] . B[c, j, g])
 //                   * exp(cs[c, i, h] - cs[c, j, h]) * dt[c, j, h] * x[c, j, h, :]
 //
-// with cs = cumsum(dt * A) over the chunk in fp32 and g = h / (H / G) the
-// head's group, all arithmetic in fp32.
+// with cs = cumsum(dt * A) over the chunk and g = h / (H / G) the head's
+// group; every sum is fp32.
 //
 // Replaces: src/repro/kernels/ssd.py:27 `_ssd_kernel` (launched by
 // `ssd_intra_chunk` at :51, `pl.pallas_call` at :63).
 //
-// What bounds it on the card: bytes, counted with the bf16 peak of the
-// inputs.  One 256-token chunk of mamba2-370m (32 heads of 64, one group,
-// state 128) moves ~3.2 MB with a bf16 x and an fp32 y, ~1 us at 3.35 TB/s,
-// against ~0.15 GFLOP of causal work.  This first kernel does that work on
-// the fp32 cores from shared memory, not on the tensor cores, and recomputes
-// C.B for each of the heads of a group that share it (~0.45 G FMAs at that
-// shape).  Nearly every FMA waits on a shared-memory read, so shared-memory
-// traffic bounds it in practice: on an H100 it is slower than its plain
-// PyTorch version.  Sharing C.B across a group's heads, or bf16 tensor-core
-// products for C.B (exact in fp32), is the way to make it fast.
+// Two bodies, chosen by the host:
+//   * bfloat16 x, B, C with 16-byte aligned rows (p and n multiples of 8),
+//     the fast path: `ssd_intra_chunk_mma_kernel`, both products on the
+//     tensor cores (mma.sync m16n8k16, bf16 in, fp32 accumulate).
+//   * float32 inputs, the exactness path, and any bf16 input the fast path
+//     does not take (rows off 16-byte alignment, p or n not a multiple of
+//     8, a chunk too long for its shared memory):
+//     `ssd_intra_chunk_kernel`, fp32 FMAs on the CUDA cores with scalar
+//     loads, the older of the two, kept as it was written.
 //
-// Design.  The TPU kernel holds a chunk's whole [l, l, heads-of-a-group]
-// decay tensor in VMEM (8 MB of fp32 at l = 256 and 32 heads); a block here
-// has 227 KB.  So the work is re-tiled as flash attention is, without the
-// softmax: one block of 128 threads (4 warps) owns (chunk, head, tile of
-// TQ = 32 query rows) and loops over the key tiles of TK = 32 rows at or
-// below the diagonal, skipping those above it.  Per key tile it stages B
-// and x * dt in shared memory, forms W = (C.B) * exp(cs_i - cs_j) for the
+// What bounds it on the card: at mamba2-370m's full width (2 chunks of
+// 256, 32 heads of 64, one group, state 128, bf16 in, fp32 out) the kernel
+// moves 6.6 MB (2 us at the HBM rate) for 0.29 GFLOP of causal work (0.3
+// us at the bf16 peak): bytes, in theory.  In practice latency bounds it:
+// the serial path of the block that owns the last query tile, which walks
+// every key tile of its chunk.  The CUDA-core body fed ~0.45 G fp32 FMAs
+// from shared memory and recomputed C.B for each of the 32 heads of the
+// group that share it (2/3 of the work); on an H100 it was slower than its
+// plain PyTorch version (127 against 119 us).  The bf16 body below takes
+// ~24 us there (H100 80GB HBM3 at 700 W, chip_smoke.py phase 3).  What
+// bounds it now: the x-side mma's of the longest block (4 steps of 96
+// mma.sync a warp, two warps to a scheduler) and the causal imbalance
+// (the last query tile's blocks walk 4 key tiles, the average 2.5).
+// wgmma, or the longest blocks' key tiles shared out further, are the
+// levers left.
+//
+// The bf16 design against that:
+//   * C.B on the tensor cores.  A block owns a 64-row query tile of one
+//     chunk, 16 rows a warp; C.B of each 64-key tile at or below the
+//     diagonal is one mma row block a warp, from ldmatrix fragments of C
+//     (read once) and B.  bf16 x bf16 products are exact in fp32, so
+//     this is the reference's fp32 dot up to summation order.
+//   * C.B shared by the heads of a block.  A block owns HB heads of one
+//     group.  It computes C.B once and keeps the fp32 fragments of every
+//     key tile in shared memory, in fragment order (float4 a lane, so
+//     conflict-free): the warp of a 16-row slice in either group reads
+//     them for each of its heads.  On the tensor cores C.B costs about 2/3
+//     of one head's x-side product, so sharing it pays, but not at the
+//     price of idle SMs: HB = 2, one head for each of the two warp groups
+//     below, where the heads of a group pair up, else 1.  At full width
+//     that is 2 chunks x 4 query tiles x 16 head pairs = 128 blocks of
+//     ~150 KB, one on each of 132 SMs (HB = 1 would need two waves, as two
+//     such blocks do not fit an SM; HB = 4 would leave half the SMs idle);
+//     a 128-token prompt (one chunk) gives 64 blocks.  The serve's host
+//     bounds its tokens/s, so the launch reads the card's shared-memory
+//     maximum and raises the kernel's limit once per device, not per call.
+//   * A shorter serial path.  A block has 8 warps in two groups of 4 (one
+//     warp a 16-row slice in each), and a ring stage holds one tile for
+//     each group: the groups share out the C.B key tiles (even, odd), then
+//     the heads (even, odd).  At full width the longest block walks 2 C.B
+//     steps and 4 x steps instead of 4 and 8, with two warps on each
+//     scheduler to hide each other's latencies.  A first build with 4
+//     warps walking every tile in series took 35.9 us on an H100 80GB HBM3
+//     at 700 W.  Within a step, each 16-key slice loads all its x
+//     fragments before its products, and the three terms' products are
+//     issued term by term, so NO mma's stand between two into one
+//     accumulator (asm volatile keeps the issue order as written).
+//   * The x-side product on the tensor cores without losing fp32.  dt_j is
+//     folded into the weights, W'[i, j] = (C_i.B_j) exp(cs_i - cs_j) dt_j,
+//     in fp32, so x stays the exact bf16 operand; W' is split into three
+//     bf16 terms (hi, mid, lo: each the bf16 rounding of what the terms
+//     before it left), and the three mma's of a 16-key step go into one
+//     fp32 accumulator.  Three terms keep 24 bits of W', what fp32 keeps: a
+//     CPU emulation at full width lands at 3% of the 2e-4 tolerance, two
+//     terms at 79%, one bf16 rounding 419x over it
+//     (tests/test_torch_kernels.py::test_ssd_tensor_core_arithmetic_*).
+//     The C fragment of C.B is the A fragment of the W' product, so W'
+//     never leaves registers.  The decay is the hardware's exp2 (__expf):
+//     its relative error, about 2^-21 plus |cs_i - cs_j| 2^-24, is of the
+//     order of the rounding of the cumsums themselves.  A lane reads the
+//     cs and dt of its two keys as one float2 each, from arrays padded
+//     with zeros to whole tiles.
+//   * Loads by 16-byte cp.async into a two-stage ring: the block's B tiles,
+//     then the x tiles of each of its heads, stage s + 1 loading while
+//     stage s computes; the ragged edge is zero-filled, never read.  Shared rows are
+//     padded by 16 bytes, so an ldmatrix's 8 rows hit 32 banks.  Key tiles
+//     above the diagonal are never loaded, and a warp whose 16 rows all lie
+//     before a key tile skips its products.  The grid takes the last query
+//     tile first, so the longest blocks are dispatched first.
+//   * Entries with j > i, where cs_i - cs_j > 0 and exp can overflow, are
+//     selected away and never multiplied.
+//
+// Both bodies take the block's cumsum the same way: a warp scan in double
+// (each lane a serial segment, then shuffles), rounded to fp32.  That is
+// what torch.cumsum of float32 does on the CPU, and it keeps the
+// differences cs_i - cs_j, whose absolute error grows with |cs|, the same
+// on the card as there.  The bf16 body first loads the dt of its HB heads
+// with all its threads at once into shared memory, where a warp a head
+// scans them, while the first tiles load.
+//
+// Shapes: the chunk length, the head and state widths are runtime values
+// (p <= 128, n <= 256); ragged edges are masked.  x, B and C are read
+// through (chunk, row, head-or-group) strides with the last dimension
+// contiguous, so the model's strided views of one conv output (row stride
+// 2304 elements, B and C at 2048 and 2176) need no copy and take the bf16
+// body; dt [N, l, h] and A [h] are contiguous fp32.  y is contiguous [N, l,
+// h, p], in fp32 or in x's dtype.
+//
+// The CUDA-core body: one block of 128 threads (4 warps) owns (chunk,
+// head, tile of TQ = 32 query rows) and loops over the key tiles of TK =
+// 32 rows at or below the diagonal.  Per key tile it stages B and x * dt
+// in shared memory as fp32, forms W = (C.B) * exp(cs_i - cs_j) for the
 // tile, and adds W @ (x * dt) into fp32 accumulators in registers.  Each
 // thread owns rows warp + 4m (m < 8): in the W phase the W entries of key
 // lane, in the y phase the outputs of columns lane + 32q (q < 4).  Rows of
-// C, B and W are read as float4 (C and W broadcast to the warp, B rows
-// padded by 4 floats so that a quarter-warp's 16-byte reads hit distinct
-// banks), so a shared load feeds 4 to 16 FMAs.  Tiles are loaded by rows
-// per warp and columns per lane, with no division.  Entries with j > i,
-// where cs_i - cs_j > 0 and exp can overflow, are selected away and never
-// multiplied.  The block's cumsum is a warp scan in double (each lane a
-// serial segment, then shuffles), rounded to fp32: that is what
-// torch.cumsum of float32 does on the CPU, and it keeps the differences
-// cs_i - cs_j, whose absolute error grows with |cs|, the same on the card
-// as there.  The chunk length, the head and state widths are runtime values
-// (p <= 128, n <= 256; n is padded with zeros to a multiple of 4); ragged
-// edges are masked.  x, B and C are read through (chunk, row,
-// head-or-group) strides with the last dimension contiguous, so the model's
-// strided views need no copy; dt [N, l, h] and A [h] are contiguous fp32.
-// y is contiguous [N, l, h, p], in fp32 or in x's dtype.
+// C, B and W are read as float4, so a shared load feeds 4 to 16 FMAs; n is
+// padded with zeros to a multiple of 4.
+//
+// ptxas (sm_90a, CUDA 12.8): the bf16 body 96 / 126 / 128 / 172 registers
+// for p up to 16 / 32 / 64 / 128 (4 bytes spilled at 64), the CUDA-core
+// body 104-107, no spills.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "mma.cuh"
 
 namespace {
 
@@ -91,6 +170,38 @@ __host__ __device__ __forceinline__ size_t smem_floats(int l, int n, int p) {
          + TQ * W_STRIDE;
 }
 
+// cs[0, l_end) = cumsum(dt * A) of one head, by one warp: each lane sums
+// a segment in double, a warp scan of the lane totals gives each segment
+// its offset, and each sum is rounded to fp32.  dtc is the head's dt column
+// (stride h).
+__device__ __forceinline__ void chunk_cumsum(const float* dtc, int h, float a,
+                                             int l_end, int lane, float* cs) {
+  const int seg = (l_end + 31) / 32;
+  const int lo = min(lane * seg, l_end), hi = min(lo + seg, l_end);
+  double run = 0.0;
+  for (int t = lo; t < hi; ++t)
+    run += static_cast<double>(dtc[static_cast<long long>(t) * h] * a);
+  double incl = run;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const double v = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += v;
+  }
+  run = incl - run;                     // the segment's offset
+  for (int t = lo; t < hi; ++t) {
+    const float d = dtc[static_cast<long long>(t) * h];
+    run += static_cast<double>(d * a);
+    cs[t] = static_cast<float>(run);
+  }
+}
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
 template <typename T, typename O>
 __global__ void __launch_bounds__(THREADS)
 ssd_intra_chunk_kernel(const T* __restrict__ x, const float* __restrict__ dt,
@@ -121,27 +232,7 @@ ssd_intra_chunk_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   const T* Bc = B + chunk * bs.chunk + grp * bs.head;
   const T* Cc = C + chunk * cs_.chunk + grp * cs_.head;
 
-  // cs[0, l_end) = cumsum(dt * A): each lane sums a segment in double, a
-  // warp scan of the lane totals gives each segment its offset.
-  if (warp == 0) {
-    const float a = A[head];
-    const int seg = (l_end + 31) / 32;
-    const int lo = min(lane * seg, l_end), hi = min(lo + seg, l_end);
-    double run = 0.0;
-    for (int t = lo; t < hi; ++t)
-      run += static_cast<double>(dtc[static_cast<long long>(t) * h] * a);
-    double incl = run;
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const double v = __shfl_up_sync(0xffffffffu, incl, off);
-      if (lane >= off) incl += v;
-    }
-    run = incl - run;                   // the segment's offset
-    for (int t = lo; t < hi; ++t) {
-      run += static_cast<double>(dtc[static_cast<long long>(t) * h] * a);
-      cs[t] = static_cast<float>(run);
-    }
-  }
+  if (warp == 0) chunk_cumsum(dtc, h, A[head], l_end, lane, cs);
   for (int r = warp; r < TQ; r += WARPS) {       // C tile, zero-padded
     const int i = q0 + r;
     for (int k = lane; k < n4; k += 32)
@@ -237,6 +328,266 @@ ssd_intra_chunk_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   }
 }
 
+// The bf16 body (see the note at the top).  Block (z, head set, chunk)
+// owns query rows [q0, q0 + 64) of heads [hb * HB, hb * HB + HB), all of
+// one group.  8 warps: warp w works on the 16 rows of slice w % 4 for
+// warp group w / 4.  Ring stage s holds two tiles, one for each group: in
+// the C.B steps the B tiles 2s and 2s + 1, then for each pair of heads
+// (2hp, 2hp + 1) the x tiles kt = 0..qt of both heads.
+constexpr int M_TQ = 64;               // query rows a block owns
+constexpr int M_TK = 64;               // keys a tile; == M_TQ
+constexpr int M_SLICES = M_TQ / 16;    // 16-row slices, one a warp
+constexpr int M_GROUPS = 2;            // warp groups sharing out the tiles
+constexpr int M_THREADS = M_SLICES * M_GROUPS * 32;  // 256
+constexpr int M_MAX_DEVICES = 64;      // devices the launch caches
+
+__host__ __device__ __forceinline__ int round16(int v) {
+  return (v + 15) & ~15;
+}
+
+struct MmaSmem {                        // byte offsets of the bf16 body
+  int c_stride, ring_stride, kt_max;    // (elements, elements, tiles)
+  size_t ring, frag, cs, dt, total;
+};
+
+template <int PMAX>
+__host__ __device__ __forceinline__ MmaSmem mma_smem(int l, int n, int hb) {
+  MmaSmem m;
+  m.c_stride = round16(n) + 8;         // padded by 16 bytes
+  m.ring_stride = m.c_stride > PMAX + 8 ? m.c_stride : PMAX + 8;
+  m.kt_max = (l + M_TK - 1) / M_TK;
+  m.ring = sizeof(__nv_bfloat16) * M_TQ * m.c_stride;
+  m.frag = m.ring
+           + sizeof(__nv_bfloat16) * 2 * M_GROUPS * M_TK * m.ring_stride;
+  m.cs = m.frag + sizeof(float) * M_TQ * M_TK * m.kt_max;
+  m.dt = m.cs + sizeof(float) * hb * M_TK * m.kt_max;
+  m.total = m.dt + sizeof(float) * hb * M_TK * m.kt_max;
+  return m;
+}
+
+template <int PMAX, typename O>
+__global__ void __launch_bounds__(M_THREADS)
+ssd_intra_chunk_mma_kernel(const __nv_bfloat16* __restrict__ x,
+                           const float* __restrict__ dt,
+                           const float* __restrict__ A,
+                           const __nv_bfloat16* __restrict__ B,
+                           const __nv_bfloat16* __restrict__ C,
+                           O* __restrict__ out, int l, int h, int p, int hg,
+                           int n, int hb_count, Strides xs, Strides bs,
+                           Strides cs_) {
+  using bf16 = __nv_bfloat16;
+  constexpr int NO = PMAX / 8;          // 8-wide output column tiles
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const int slice = warp % M_SLICES;
+  const int group = warp / M_SLICES;
+  const int qt = gridDim.x - 1 - blockIdx.x;  // the longest tiles first
+  const int head0 = blockIdx.y * hb_count;
+  const int chunk = blockIdx.z;
+  const int grp = head0 / hg;
+  const int q0 = qt * M_TQ;
+  const int l_end = min(l, q0 + M_TQ);
+  const int n16 = round16(n);
+  const MmaSmem sm = mma_smem<PMAX>(l, n, hb_count);
+  bf16* sC = reinterpret_cast<bf16*>(smem_raw);  // [64][c_stride]
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw + sm.ring);
+  float4* frag = reinterpret_cast<float4*>(smem_raw + sm.frag);
+  const int lp = M_TK * sm.kt_max;      // l padded to whole tiles
+  float* s_cs = reinterpret_cast<float*>(smem_raw + sm.cs);  // [HB][lp]
+  float* s_dt = reinterpret_cast<float*>(smem_raw + sm.dt);  // [HB][lp]
+
+  const bf16* Bc = B + chunk * bs.chunk + grp * bs.head;
+  const bf16* Cc = C + chunk * cs_.chunk + grp * cs_.head;
+  const int nkt = qt + 1;               // key tiles at or below the diagonal
+  const int cb_steps = (nkt + M_GROUPS - 1) / M_GROUPS;
+  const int n_steps = cb_steps + (hb_count + M_GROUPS - 1) / M_GROUPS * nkt;
+
+  // What group g works on in step s: a B tile (kt), or the x tile kt of
+  // head hh; false when it has nothing (past qt, or past the heads).
+  auto step_tile = [&](int s, int g, int& kt, int& hh) {
+    if (s < cb_steps) {
+      kt = M_GROUPS * s + g;
+      hh = -1;
+      return kt < nkt;
+    }
+    kt = (s - cb_steps) % nkt;
+    hh = M_GROUPS * ((s - cb_steps) / nkt) + g;
+    return hh < hb_count;
+  };
+  // Both tiles of step s into ring stage s % 2.  Zero past l and past n
+  // (or p), where nothing is read.
+  auto load_step = [&](int s) {
+#pragma unroll
+    for (int g = 0; g < M_GROUPS; ++g) {
+      int kt, hh;
+      if (!step_tile(s, g, kt, hh)) continue;
+      bf16* dst = ring + ((s % 2) * M_GROUPS + g) * M_TK * sm.ring_stride;
+      const bool is_b = hh < 0;
+      const bf16* src = is_b ? Bc
+          : x + chunk * xs.chunk + (head0 + hh) * xs.head;
+      const long long row = is_b ? bs.row : xs.row;
+      const int width = is_b ? n : p;
+      const int chunks = (is_b ? n16 : PMAX) / 8;
+      for (int i = threadIdx.x; i < M_TK * chunks; i += M_THREADS) {
+        const int r = i / chunks, c = (i % chunks) * 8;
+        const int j = kt * M_TK + r;
+        const bool ok = j < l && c < width;
+        mma::cp_async16(dst + r * sm.ring_stride + c,
+                        src + (ok ? j * row + c : 0), ok);
+      }
+    }
+    mma::cp_async_commit();
+  };
+  {                                     // the C tile, with the first B tiles
+    const int chunks = n16 / 8;
+    for (int i = threadIdx.x; i < M_TQ * chunks; i += M_THREADS) {
+      const int r = i / chunks, c = (i % chunks) * 8;
+      const int j = q0 + r;
+      const bool ok = j < l && c < n;
+      mma::cp_async16(sC + r * sm.c_stride + c,
+                      Cc + (ok ? j * cs_.row + c : 0), ok);
+    }
+  }
+  load_step(0);
+  // dt of the block's heads, every load issued at once, zero from l_end to
+  // the end of the last tile (read there, then selected away); then a warp
+  // a head takes its cumsum from shared memory
+  const float* dtc = dt + static_cast<long long>(chunk) * l * h + head0;
+  for (int i = threadIdx.x; i < hb_count * (q0 + M_TQ); i += M_THREADS) {
+    const int hh = i % hb_count, t = i / hb_count;
+    s_dt[hh * lp + t] =
+        t < l_end ? dtc[static_cast<long long>(t) * h + hh] : 0.f;
+    if (t >= l_end) s_cs[hh * lp + t] = 0.f;
+  }
+  __syncthreads();
+  for (int hh = warp; hh < hb_count; hh += M_THREADS / 32)
+    chunk_cumsum(s_dt + hh * lp, 1, A[head0 + hh], l_end, lane,
+                 s_cs + hh * lp);
+
+  const int row_lo = q0 + slice * 16;   // this warp's first row
+  const int r0 = row_lo + lane / 4;     // rows of c0, c1; c2, c3 are r0 + 8
+  float acc[NO][4];
+  for (int s = 0; s < n_steps; ++s) {
+    mma::cp_async_wait_all();
+    __syncthreads();                    // step s landed; s - 1 consumed
+    if (s + 1 < n_steps) load_step(s + 1);
+    int kt, hh;
+    if (!step_tile(s, group, kt, hh)) continue;
+    const bf16* tile =
+        ring + ((s % 2) * M_GROUPS + group) * M_TK * sm.ring_stride;
+    const int k0 = kt * M_TK;
+    // rows all before the tile's first key, or all past l: nothing to add
+    const bool idle = k0 > row_lo + 15 || row_lo >= l;
+    float4* my_frag = frag + (slice * sm.kt_max + kt) * 8 * 32 + lane;
+    if (hh < 0) {                       // C.B of key tile kt
+      if (idle) continue;
+      float c[8][4];
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) c[nt][e] = 0.f;
+      for (int kk = 0; kk < n16 / 16; ++kk) {
+        unsigned cf[4], bf[4][4];       // C rows; b0, b1 of key tiles
+        mma::ldmatrix_x4(cf, sC + (slice * 16 + lane % 16) * sm.c_stride +
+                                 kk * 16 + (lane / 16) * 8);
+#pragma unroll
+        for (int nt = 0; nt < 8; nt += 2)
+          mma::ldmatrix_x4(bf[nt / 2],
+                           tile + (nt * 8 + lane % 8 + (lane / 16) * 8) *
+                                      sm.ring_stride +
+                               kk * 16 + ((lane / 8) % 2) * 8);
+#pragma unroll
+        for (int nt = 0; nt < 8; nt += 2) {
+          mma::mma_bf16_16816(c[nt], cf, bf[nt / 2][0], bf[nt / 2][1]);
+          mma::mma_bf16_16816(c[nt + 1], cf, bf[nt / 2][2], bf[nt / 2][3]);
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+        my_frag[nt * 32] = make_float4(c[nt][0], c[nt][1], c[nt][2], c[nt][3]);
+      continue;
+    }
+    if (kt == 0) {                      // x-side product of head hh
+#pragma unroll
+      for (int nt = 0; nt < NO; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+    }
+    if (!idle) {
+      const float* cs = s_cs + hh * lp;
+      const float* dth = s_dt + hh * lp;
+      const float cs_i[2] = {cs[r0], cs[r0 + 8]};
+#pragma unroll
+      for (int kk = 0; kk < M_TK / 16; ++kk) {
+        unsigned xf[NO / 2][4];         // b0, b1 of output tiles nt, nt + 1
+#pragma unroll
+        for (int nt = 0; nt < NO; nt += 2)
+          mma::ldmatrix_x4_trans(
+              xf[nt / 2], tile + (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) *
+                                     sm.ring_stride + nt * 8 + (lane / 16) * 8);
+        // W' of keys k0 + 16kk .. + 15 from the C.B fragments of key
+        // tiles 2kk and 2kk + 1, as three bf16 A fragments
+        unsigned wf[3][4];
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const float4 sv = my_frag[(2 * kk + half) * 32];
+          const float sval[4] = {sv.x, sv.y, sv.z, sv.w};
+          const int j0 = k0 + (2 * kk + half) * 8 + (lane % 4) * 2;
+          const float2 cs2 = *reinterpret_cast<const float2*>(cs + j0);
+          const float2 dt2 = *reinterpret_cast<const float2*>(dth + j0);
+          const float cs_j[2] = {cs2.x, cs2.y}, dt_j[2] = {dt2.x, dt2.y};
+          float w[3][4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = r0 + (e >> 1) * 8;
+            const int j = j0 + (e & 1);
+            const bool keep = j <= i && i < l;  // j <= i < l: j < l
+            const float wv = keep ? sval[e] * __expf(cs_i[e >> 1] -
+                                                     cs_j[e & 1]) *
+                                        dt_j[e & 1]
+                                  : 0.f;
+            const float hi = __bfloat162float(__float2bfloat16(wv));
+            const float rest = wv - hi;
+            const float mid = __bfloat162float(__float2bfloat16(rest));
+            w[0][e] = hi;
+            w[1][e] = mid;
+            w[2][e] = rest - mid;
+          }
+#pragma unroll
+          for (int term = 0; term < 3; ++term) {
+            wf[term][2 * half] = mma::pack_bf16(w[term][0], w[term][1]);
+            wf[term][2 * half + 1] = mma::pack_bf16(w[term][2], w[term][3]);
+          }
+        }
+#pragma unroll
+        for (int term = 0; term < 3; ++term)  // NO products between two
+#pragma unroll                                // into one accumulator
+          for (int nt = 0; nt < NO; nt += 2) {
+            mma::mma_bf16_16816(acc[nt], wf[term], xf[nt / 2][0],
+                                xf[nt / 2][1]);
+            mma::mma_bf16_16816(acc[nt + 1], wf[term], xf[nt / 2][2],
+                                xf[nt / 2][3]);
+          }
+      }
+    }
+    if (kt == nkt - 1 && row_lo < l) {  // head hh done: write its rows
+      O* oc = out + (static_cast<long long>(chunk) * l * h + head0 + hh) * p
+              + (lane % 4) * 2;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int i = r0 + 8 * r;
+        if (i >= l) continue;
+#pragma unroll
+        for (int nt = 0; nt < NO; ++nt)
+          if (nt * 8 < p)
+            store2(oc + static_cast<long long>(i) * h * p + nt * 8,
+                   acc[nt][2 * r], acc[nt][2 * r + 1]);
+      }
+    }
+  }
+}
+
 template <typename T, typename O>
 cudaError_t launch(const void* x, const void* dt, const void* A,
                    const void* B, const void* C, void* out, int N, int l,
@@ -258,20 +609,84 @@ cudaError_t launch(const void* x, const void* dt, const void* A,
   return cudaGetLastError();
 }
 
+// Launches the bf16 body with hb heads a block and returns true, or returns
+// false (launching nothing) when its shared memory does not fit the card.
+// Per device, the opt-in shared-memory maximum is read once and the
+// kernel's limit raised only when a launch needs more than it was set to;
+// a race between host threads only repeats a call.
+template <int PMAX, typename O>
+bool launch_mma(const void* x, const void* dt, const void* A, const void* B,
+                const void* C, void* out, int N, int l, int h, int p, int g,
+                int n, int hb, Strides xs, Strides bs, Strides cs,
+                cudaStream_t stream, cudaError_t* err) {
+  static int optin[M_MAX_DEVICES], limit[M_MAX_DEVICES];
+  const int smem = static_cast<int>(mma_smem<PMAX>(l, n, hb).total);
+  int dev = 0;
+  if ((*err = cudaGetDevice(&dev)) != cudaSuccess) return true;
+  if (dev >= M_MAX_DEVICES) {
+    *err = cudaErrorInvalidDevice;
+    return true;
+  }
+  if (!optin[dev] &&
+      (*err = cudaDeviceGetAttribute(
+           &optin[dev], cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) !=
+          cudaSuccess)
+    return true;
+  if (smem > optin[dev]) return false;
+  if (smem > limit[dev]) {
+    if ((*err = cudaFuncSetAttribute(
+             ssd_intra_chunk_mma_kernel<PMAX, O>,
+             cudaFuncAttributeMaxDynamicSharedMemorySize, smem)) !=
+        cudaSuccess)
+      return true;
+    limit[dev] = smem;
+  }
+  const dim3 grid((l + M_TQ - 1) / M_TQ, h / hb, N);
+  ssd_intra_chunk_mma_kernel<PMAX, O><<<grid, M_THREADS, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(dt),
+      static_cast<const float*>(A), static_cast<const __nv_bfloat16*>(B),
+      static_cast<const __nv_bfloat16*>(C), static_cast<O*>(out), l, h, p,
+      h / g, n, hb, xs, bs, cs);
+  *err = cudaGetLastError();
+  return true;
+}
+
+template <typename O>
+bool launch_mma_p(const void* x, const void* dt, const void* A, const void* B,
+                  const void* C, void* out, int N, int l, int h, int p, int g,
+                  int n, int hb, Strides xs, Strides bs, Strides cs,
+                  cudaStream_t stream, cudaError_t* err) {
+#define MMA_ARGS \
+  x, dt, A, B, C, out, N, l, h, p, g, n, hb, xs, bs, cs, stream, err
+  if (p <= 16) return launch_mma<16, O>(MMA_ARGS);
+  if (p <= 32) return launch_mma<32, O>(MMA_ARGS);
+  if (p <= 64) return launch_mma<64, O>(MMA_ARGS);
+  return launch_mma<128, O>(MMA_ARGS);
+#undef MMA_ARGS
+}
+
+// Whether the bf16 body may read x, B, C: 16-byte aligned base pointers,
+// strides and rows (p and n multiples of 8 elements) for cp.async.
+bool aligned16(const void* ptr, const Strides& st, int width) {
+  return reinterpret_cast<std::uintptr_t>(ptr) % 16 == 0 && width % 8 == 0 &&
+         st.chunk % 8 == 0 && st.row % 8 == 0 && st.head % 8 == 0;
+}
+
 }  // namespace
 
 // x [N, l, h, p] and B, C [N, l, g, n] in one dtype, read through the given
 // (chunk, row, head/group) strides with the last dimension contiguous;
 // dt [N, l, h] and A [h] contiguous float32; out [N, l, h, p] contiguous.
 // x_bf16: 1 for bfloat16 x, B, C, 0 for float32; out_bf16: 1 for a
-// bfloat16 y (x must then be bfloat16), 0 for float32.  Returns a
-// cudaError_t (0 on success).
+// bfloat16 y (x must then be bfloat16), 0 for float32.  heads_per_block,
+// where not null, receives the heads a block of the bf16 body took, or 0
+// for the CUDA-core body.  Returns a cudaError_t (0 on success).
 extern "C" int ssd_intra_chunk_fwd(
     const void* x, const void* dt, const void* A, const void* B,
     const void* C, void* out, int x_bf16, int out_bf16, int N, int l, int h,
     int p, int g, int n, long long x_sc, long long x_sl, long long x_sh,
     long long b_sc, long long b_sl, long long b_sg, long long c_sc,
-    long long c_sl, long long c_sg, void* stream) {
+    long long c_sl, long long c_sg, int* heads_per_block, void* stream) {
   if (N <= 0 || l <= 0 || h <= 0 || p <= 0 || p > MAX_P || g <= 0
       || h % g != 0 || n <= 0 || n > MAX_N || N > 65535 || h > 65535
       || (out_bf16 && !x_bf16))
@@ -279,6 +694,21 @@ extern "C" int ssd_intra_chunk_fwd(
   const Strides xs{x_sc, x_sl, x_sh}, bs{b_sc, b_sl, b_sg},
       cs{c_sc, c_sl, c_sg};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (heads_per_block) *heads_per_block = 0;
+  if (x_bf16 && aligned16(x, xs, p) && aligned16(B, bs, n) &&
+      aligned16(C, cs, n)) {
+    cudaError_t err = cudaSuccess;
+    const int hb = (h / g) % M_GROUPS ? 1 : M_GROUPS;
+    const bool took = out_bf16
+        ? launch_mma_p<__nv_bfloat16>(x, dt, A, B, C, out, N, l, h, p, g, n,
+                                      hb, xs, bs, cs, st, &err)
+        : launch_mma_p<float>(x, dt, A, B, C, out, N, l, h, p, g, n, hb, xs,
+                              bs, cs, st, &err);
+    if (took) {
+      if (heads_per_block && err == cudaSuccess) *heads_per_block = hb;
+      return err;
+    }
+  }
   if (!x_bf16)
     return launch<float, float>(x, dt, A, B, C, out, N, l, h, p, g, n, xs,
                                 bs, cs, st);

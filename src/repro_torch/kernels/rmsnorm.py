@@ -27,7 +27,7 @@ GATED_MAX_WIDTH = 4096      # 256 threads x 16 values a row
 @functools.lru_cache(maxsize=None)
 def _kernel():
     fn = _build.load("rmsnorm").rmsnorm_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -36,11 +36,28 @@ def _kernel():
 @functools.lru_cache(maxsize=None)
 def _gated_kernel():
     fn = _build.load("rmsnorm").gated_rmsnorm_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
                    + [ctypes.c_longlong] * 2
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+def _check_dtypes(name, x, scale):
+    """The pairs the kernels take: the scale in x's dtype, or a float32
+    scale with bfloat16 x (applied in fp32, as the reference applies the
+    1-D scale that its ``cast_params`` leaves in float32).  Returns whether
+    the scale is that float32 one."""
+    if x.dtype not in DTYPES:
+        raise ValueError(f"{name}: dtype {x.dtype}; the kernel takes "
+                         f"{DTYPES}")
+    if scale.dtype == x.dtype:
+        return False
+    if x.dtype == torch.bfloat16 and scale.dtype == torch.float32:
+        return True
+    raise ValueError(f"{name}: scale has dtype {scale.dtype}, the input "
+                     f"{x.dtype}; the kernel takes the scale in the input's "
+                     "dtype, or float32 with bfloat16 input")
 
 
 def _rows(t, name, d):
@@ -58,23 +75,18 @@ def _rows(t, name, d):
 
 
 def rmsnorm(x, scale, eps: float = 1e-5):
-    """x [..., D] contiguous; scale [D] in x's dtype -> x's shape and
-    dtype."""
+    """x [..., D] contiguous; scale [D] in x's dtype, or float32 with
+    bfloat16 x -> x's shape and dtype."""
     global launches
     _guard.refuse_autograd("rmsnorm", x, scale)
+    scale_f32 = _check_dtypes("rmsnorm", x, scale)
     for name, t in (("x", x), ("scale", scale)):
         if not t.is_cuda:
             raise ValueError(f"rmsnorm: {name} is not a CUDA tensor")
-        if t.dtype not in DTYPES:
-            raise ValueError(f"rmsnorm: {name} has dtype {t.dtype}; the "
-                             f"kernel takes {DTYPES}")
         if not t.is_contiguous():
             raise ValueError(f"rmsnorm: {name} must be contiguous")
     if x.device != scale.device:
         raise ValueError("rmsnorm: x and scale on different devices")
-    if scale.dtype != x.dtype:
-        raise ValueError(f"rmsnorm: scale has dtype {scale.dtype}, x has "
-                         f"{x.dtype}; the kernel takes one dtype for both")
     if x.dim() == 0 or scale.shape != (x.shape[-1],):
         raise ValueError(f"rmsnorm: scale {tuple(scale.shape)} does not match "
                          f"x {tuple(x.shape)}")
@@ -86,8 +98,8 @@ def rmsnorm(x, scale, eps: float = 1e-5):
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _kernel()(x.data_ptr(), scale.data_ptr(), out.data_ptr(),
-                        int(x.dtype == torch.bfloat16), rows, d,
-                        float(eps), stream)
+                        int(x.dtype == torch.bfloat16), int(scale_f32),
+                        rows, d, float(eps), stream)
     if err != 0:
         raise RuntimeError(f"rmsnorm kernel launch failed: CUDA error {err}")
     launches += 1
@@ -97,19 +109,18 @@ def rmsnorm(x, scale, eps: float = 1e-5):
 def gated_rmsnorm(y, z, scale, eps: float = 1e-5):
     """RMSNorm(y * silu(z)).  y, z [..., D] of one shape, each with one
     stride between rows and a contiguous last dimension (the gate is a
-    strided slice of the input projection); scale [D]; all in one dtype.
-    Returns a contiguous tensor of y's shape and dtype."""
+    strided slice of the input projection) in one dtype; scale [D] in
+    that dtype, or float32 with bfloat16 y and z.  Returns a contiguous
+    tensor of y's shape and dtype."""
     global gated_launches
     _guard.refuse_autograd("gated_rmsnorm", y, z, scale)
+    if z.dtype != y.dtype:
+        raise ValueError(f"gated_rmsnorm: z has dtype {z.dtype}, y has "
+                         f"{y.dtype}; the kernel takes one dtype for both")
+    scale_f32 = _check_dtypes("gated_rmsnorm", y, scale)
     for name, t in (("y", y), ("z", z), ("scale", scale)):
         if not t.is_cuda:
             raise ValueError(f"gated_rmsnorm: {name} is not a CUDA tensor")
-        if t.dtype != y.dtype:
-            raise ValueError(f"gated_rmsnorm: {name} has dtype {t.dtype}, y "
-                             f"has {y.dtype}; the kernel takes one dtype")
-    if y.dtype not in DTYPES:
-        raise ValueError(f"gated_rmsnorm: dtype {y.dtype}; the kernel takes "
-                         f"{DTYPES}")
     if not (y.device == z.device == scale.device):
         raise ValueError("gated_rmsnorm: y, z, scale on different devices")
     if y.dim() == 0 or z.shape != y.shape or scale.shape != (y.shape[-1],):
@@ -131,8 +142,8 @@ def gated_rmsnorm(y, z, scale, eps: float = 1e-5):
         stream = torch.cuda.current_stream().cuda_stream
         err = _gated_kernel()(y2.data_ptr(), z2.data_ptr(), scale.data_ptr(),
                               out.data_ptr(), int(y.dtype == torch.bfloat16),
-                              y2.shape[0], d, y_stride, z_stride, float(eps),
-                              stream)
+                              int(scale_f32), y2.shape[0], d, y_stride,
+                              z_stride, float(eps), stream)
     if err != 0:
         raise RuntimeError(f"gated_rmsnorm kernel launch failed: CUDA error "
                            f"{err}")

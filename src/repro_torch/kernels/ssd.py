@@ -4,7 +4,10 @@
 Takes CUDA tensors only and raises on anything the kernel does not take;
 the CPU path lives in :mod:`repro_torch.kernels.ops`.  There is no
 backward: with grad enabled, inputs that require grad raise.  ``launches``
-counts the kernel launches made through this module.
+counts the kernel launches made through this module; ``heads_per_block``
+is what the last launch took: the heads a block of the tensor-core body
+owned, or 0 for the CUDA-core body (float32, or bfloat16 rows off 16-byte
+alignment).
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import torch
 from repro_torch.kernels import _build, _guard
 
 launches = 0
+heads_per_block = 0
 
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEAD_DIM = 128
@@ -26,7 +30,8 @@ MAX_STATE = 256
 def _kernel():
     fn = _build.load("ssd").ssd_intra_chunk_fwd
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
-                   + [ctypes.c_longlong] * 9 + [ctypes.c_void_p])
+                   + [ctypes.c_longlong] * 9
+                   + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -36,7 +41,7 @@ def ssd_intra_chunk(x, dt, A, B, C, *, out_dtype=None):
     contiguous float32; B, C [N,l,g,n] in x's dtype; x, B, C may be strided
     views with a contiguous last dimension.  Returns y [N,l,h,p], contiguous,
     in ``out_dtype`` (float32 or x's dtype; default x's dtype)."""
-    global launches
+    global launches, heads_per_block
     _guard.refuse_autograd("ssd_intra_chunk", x, dt, A, B, C)
     for name, t in (("x", x), ("dt", dt), ("A", A), ("B", B), ("C", C)):
         if not t.is_cuda:
@@ -77,6 +82,7 @@ def ssd_intra_chunk(x, dt, A, B, C, *, out_dtype=None):
     out = torch.empty((N, l, h, p), dtype=out_dtype, device=x.device)
     if out.numel() == 0:
         return out
+    hb = ctypes.c_int(0)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _kernel()(x.data_ptr(), dt.data_ptr(), A.data_ptr(),
@@ -84,9 +90,10 @@ def ssd_intra_chunk(x, dt, A, B, C, *, out_dtype=None):
                         int(x.dtype == torch.bfloat16),
                         int(out_dtype == torch.bfloat16), N, l, h, p, g, n,
                         *x.stride()[:3], *B.stride()[:3], *C.stride()[:3],
-                        stream)
+                        ctypes.byref(hb), stream)
     if err != 0:
         raise RuntimeError(f"ssd_intra_chunk kernel launch failed: CUDA error "
                            f"{err}")
     launches += 1
+    heads_per_block = hb.value
     return out

@@ -21,7 +21,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core.overload import DeviceObservation, OverloadController
 from repro_torch.models import model as model_lib
-from repro_torch.models.transformer import leaves
+from repro_torch.models.transformer import leaves, model_dtype
 from repro_torch.monitor import publish_step_utilization
 from repro_torch.roofline import hw
 
@@ -53,10 +53,17 @@ class EngineConfig:
     monitor: bool = True
     device: str = "cuda"
     # Device figures for the duty cycle and the controller.  On a card they
-    # default to the H100 bf16 data-sheet peak and the card's memory; on the
+    # default to the H100 data-sheet peak for the model's dtype
+    # (``default_peak_flops``) and the card's memory; on the
     # CPU there is no device figure, so a monitored engine needs both.
     peak_flops: Optional[float] = None
     mem_total_gb: Optional[float] = None
+
+
+def default_peak_flops(cfg) -> float:
+    """The H100 peak the duty cycle is measured against on a card: that of
+    the model's compute dtype (bf16 on the tensor cores, fp32 outside)."""
+    return hw.peak_flops(model_dtype(cfg))
 
 
 class ServeEngine:
@@ -75,7 +82,7 @@ class ServeEngine:
         self.mem_total_gb = ecfg.mem_total_gb
         if self.device.type == "cuda":
             if self.peak_flops is None:
-                self.peak_flops = hw.PEAK_FLOPS_BF16
+                self.peak_flops = default_peak_flops(cfg)
             if self.mem_total_gb is None:
                 self.mem_total_gb = hw.device_memory_bytes(self.device) / 1e9
         elif ecfg.monitor and (self.peak_flops is None

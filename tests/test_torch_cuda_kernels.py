@@ -168,9 +168,35 @@ def test_kernels_refuse_what_they_do_not_take(dev):
     x = torch.randn(8, 64, device=dev).t()               # not contiguous
     with pytest.raises(ValueError, match="contiguous"):
         ops.rmsnorm(x, torch.ones(8, device=dev))
-    x = torch.randn(8, 64, device=dev, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="dtype"):       # fp32 scale
-        ops.rmsnorm(x, torch.ones(64, device=dev))
+    x = torch.randn(8, 64, device=dev)
+    n = rn.launches
+    with pytest.raises(ValueError, match="dtype"):       # bf16 scale, fp32 x
+        ops.rmsnorm(x, torch.ones(64, device=dev, dtype=torch.bfloat16))
+    assert rn.launches == n
+
+
+# bf16 activations with a float32 scale, which the reference's cast_params
+# leaves on 1-D scales and applies in fp32: llsc-100m's decode rows and
+# 320 rows of mamba2-370m's gated width; off 16-byte alignment by ``off``
+# elements (the scalar bodies).
+@pytest.mark.parametrize("rows,d,off", [(4, 768, 0), (320, 2048, 0),
+                                        (4, 768, 1), (3, 101, 0)])
+def test_norms_take_bf16_input_with_a_float32_scale(dev, rows, d, off):
+    g = torch.Generator(device=dev).manual_seed(rows + d + off)
+
+    def bf16_rows():
+        buf = torch.randn(rows * d + off, device=dev, generator=g)
+        return buf.to(torch.bfloat16)[off:].view(rows, d)
+
+    x, z = bf16_rows(), bf16_rows()
+    s = torch.randn(d, device=dev, generator=g) * 0.1 + 1.0
+    got = rn.rmsnorm(x, s)
+    assert got.dtype == torch.bfloat16
+    _close(got, ref.rmsnorm_ref(x, s), torch.bfloat16)
+    got = rn.gated_rmsnorm(x, z, s)
+    assert got.dtype == torch.bfloat16
+    _close(got, ref.gated_rmsnorm_ref(x, z, s), torch.bfloat16)
+    torch.cuda.synchronize()
 
 
 # The reference's shape, then mamba2-370m's decode (4 slots) and prefill
@@ -203,6 +229,20 @@ def test_gated_rmsnorm_reads_a_strided_gate(dev, dtype):
            ref.gated_rmsnorm_ref(y[:, :1], z[:, -1:], s), dtype)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_gated_rmsnorm_reads_rows_off_alignment(dev, dtype):
+    """Rows one element off 16-byte alignment, or a row stride that is not
+    a whole number of 16-byte vectors, take the scalar body."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    y = torch.randn(4 * 2048 + 1, device=dev, generator=g).to(dtype)
+    y = y[1:].view(4, 2048)
+    z = torch.randn(4, 2048 + 3, device=dev, generator=g).to(dtype)[:, 3:]
+    s = (torch.randn(2048, device=dev, generator=g) * 0.1 + 1.0).to(dtype)
+    got = rn.gated_rmsnorm(y, z, s)
+    torch.cuda.synchronize()
+    _close(got, ref.gated_rmsnorm_ref(y, z, s), dtype)
+
+
 def _ssd_inputs(dev, N, l, h, p, g, n, dtype, seed=0):
     gen = torch.Generator(device=dev).manual_seed(seed)
 
@@ -216,16 +256,23 @@ def _ssd_inputs(dev, N, l, h, p, g, n, dtype, seed=0):
     return x, dt, A, B, C
 
 
-# The sweep of tests/test_kernels.py, a ragged chunk, then mamba2-370m's
-# two chunks of a 320-token prefill (the second padded).
+# The sweep of tests/test_kernels.py, ragged chunks (40: one key tile of
+# the tensor-core body; 200 and 100: several, the last partial), p = 128,
+# three heads a group (one head a block), then mamba2-370m's two chunks of
+# a 320-token prefill (the second padded).
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("N,l,h,p,g,n", [
     (1, 32, 4, 16, 1, 8), (2, 64, 8, 32, 2, 16), (1, 16, 2, 8, 2, 4),
-    (3, 40, 4, 64, 1, 128), (2, 256, 32, 64, 1, 128)])
+    (3, 40, 4, 64, 1, 128), (1, 200, 4, 128, 1, 64), (2, 100, 6, 64, 2, 128),
+    (2, 256, 32, 64, 1, 128)])
 def test_ssd_kernel_matches_plain(dev, N, l, h, p, g, n, dtype):
     x, dt, A, B, C = _ssd_inputs(dev, N, l, h, p, g, n, dtype, seed=l + h)
     for out_dtype in {torch.float32, dtype}:
         got = ssd.ssd_intra_chunk(x, dt, A, B, C, out_dtype=out_dtype)
+        # bf16 with p and n multiples of 8 takes the tensor-core body, with
+        # two heads a block where the heads of a group pair up, else one
+        mma = dtype == torch.bfloat16 and p % 8 == 0 and n % 8 == 0
+        assert ssd.heads_per_block == ((1 if h // g % 2 else 2) if mma else 0)
         want = ref.ssd_intra_chunk_ref(x, dt, A, B, C, out_dtype=out_dtype)
         torch.cuda.synchronize()
         assert got.dtype == out_dtype
@@ -251,6 +298,29 @@ def test_ssd_kernel_reads_strided_views_and_selects_the_mask(dev):
     torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
 
 
+@pytest.mark.parametrize("off", [0, 1])
+def test_ssd_bf16_reads_the_models_views(dev, off):
+    """x, B, C as the model hands them over: views of one conv output with
+    a row stride of 2304 elements and B, C at 2048 and 2176, which take the
+    tensor-core body; then B and C one element further on (``off`` 1),
+    off 16-byte alignment, which take the CUDA-core body."""
+    N, l, h, p, g, n = 2, 256, 32, 64, 1, 128
+    gen = torch.Generator(device=dev).manual_seed(7 + off)
+    xbc = torch.randn(N, l, h * p + 2 * g * n + off, device=dev,
+                      generator=gen).to(torch.bfloat16)
+    x = xbc[..., :h * p].unflatten(-1, (h, p))
+    B = xbc[..., h * p + off:h * p + g * n + off].unflatten(-1, (g, n))
+    C = xbc[..., h * p + g * n + off:].unflatten(-1, (g, n))
+    dt = torch.nn.functional.softplus(torch.randn(N, l, h, device=dev,
+                                                  generator=gen))
+    A = -torch.exp(torch.randn(h, device=dev, generator=gen) * 0.3)
+    got = ssd.ssd_intra_chunk(x, dt, A, B, C, out_dtype=torch.float32)
+    assert (ssd.heads_per_block > 0) == (off == 0)
+    want = ref.ssd_intra_chunk_ref(x, dt, A, B, C, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
 def test_mamba_kernels_route_and_count(dev, monkeypatch):
     def plain(*_a, **_k):
         raise AssertionError("a CUDA tensor reached the plain version")
@@ -269,6 +339,9 @@ def test_mamba_kernels_refuse_what_they_do_not_take(dev):
     y = torch.randn(4, 64, device=dev)
     with pytest.raises(ValueError, match="dtype"):          # mixed dtypes
         ops.gated_rmsnorm(y, y.to(torch.bfloat16), torch.ones(64, device=dev))
+    with pytest.raises(ValueError, match="dtype"):          # bf16 scale
+        ops.gated_rmsnorm(y, y, torch.ones(64, device=dev,
+                                           dtype=torch.bfloat16))
     with pytest.raises(ValueError, match="contiguous"):     # strided columns
         ops.gated_rmsnorm(y[:, ::2], y[:, ::2], torch.ones(32, device=dev))
     wide = torch.randn(2, 4097, device=dev)

@@ -194,6 +194,104 @@ def test_ssd_plain_output_dtype_and_masking():
     assert y32.dtype == torch.float32
 
 
+SSD_TOL = 2e-4
+
+
+def _ssd_tensor_core_emulation(terms):
+    """The bf16 body of csrc/ssd.cu in plain torch at mamba2-370m's full
+    width (2 chunks of 256, 32 heads of 64, one group, state 128; bf16 x,
+    B, C as chip_smoke draws them): C.B from bf16 with fp32 sums, dt folded
+    into W' = (C.B) exp(cs_i - cs_j) dt_j in fp32, W' split into ``terms``
+    bf16 terms (each the rounding of what the terms before it left), each
+    term's product with the bf16 x summed in fp32.  Returns the worst
+    |emulation - ssd_intra_chunk_ref| / (tol + tol |want|)."""
+    N, l, h, p, g, n = 2, 256, 32, 64, 1, 128
+    rng = np.random.default_rng(17)
+    x = torch.from_numpy(rng.standard_normal((N, l, h, p), dtype=np.float32))
+    dt = torch.nn.functional.softplus(
+        torch.from_numpy(rng.standard_normal((N, l, h), dtype=np.float32)))
+    A = -torch.exp(torch.from_numpy(
+        rng.standard_normal(h, dtype=np.float32)) * 0.3)
+    B, C = (torch.from_numpy(rng.standard_normal((N, l, g, n),
+                                                 dtype=np.float32))
+            for _ in range(2))
+    x, B, C = (t.to(torch.bfloat16) for t in (x, B, C))
+    want = ref.ssd_intra_chunk_ref(x, dt, A, B, C, out_dtype=torch.float32)
+
+    cb = torch.einsum("cign,cjgn->cgij", C.float(), B.float())  # [N,g,i,j]
+    cs = ref.cumsum_f32((dt * A).transpose(1, 2), -1)            # [N,h,l]
+    idx = torch.arange(l)
+    keep = idx[:, None] >= idx[None, :]
+    decay = torch.where(keep, cs[..., :, None] - cs[..., None, :],
+                        torch.full((), -float("inf")))
+    w = (cb.repeat_interleave(h // g, dim=1) * torch.exp(decay)
+         * dt.transpose(1, 2)[:, :, None, :])                    # [N,h,i,j]
+    y = torch.zeros(N, h, l, p)
+    rest = w
+    for _ in range(terms):
+        term = rest.to(torch.bfloat16).float()
+        rest = rest - term
+        y += term @ x.float().transpose(1, 2)                    # [N,h,l,p]
+    got = y.transpose(1, 2)
+    err = (got - want).abs() / (SSD_TOL + SSD_TOL * want.abs())
+    return float(err.max())
+
+
+def test_ssd_tensor_core_arithmetic_meets_ssd_tol():
+    """Three bf16 terms of W' keep the bf16 body within the SSD tolerance
+    of the plain version, with room to spare."""
+    worst = _ssd_tensor_core_emulation(3)
+    assert worst <= 0.1, f"worst error / tolerance {worst:.3f}"
+
+
+@pytest.mark.parametrize("terms", [1, 2])
+def test_ssd_tensor_core_arithmetic_needs_three_terms(terms):
+    """A single bf16 rounding of W' misses the SSD tolerance by far; two
+    terms come too close to it to keep."""
+    worst = _ssd_tensor_core_emulation(terms)
+    assert worst > (1.0 if terms == 1 else 0.25), \
+        f"{terms} terms: worst error / tolerance {worst:.3f}"
+
+
+# bf16 activations with a float32 scale: the 1-D scale the reference's
+# cast_params leaves in float32, applied in fp32 (repro/models/layers.py:34,
+# repro/models/ssm.py:181).
+@pytest.mark.parametrize("shape", [(4, 768), (2, 5, 64), (320, 2048)])
+def test_norms_with_bf16_input_and_a_float32_scale_match_jax(shape):
+    rng = np.random.default_rng(sum(shape))
+    tx, jx = _pair(rng, shape, "bfloat16", scale=3.0)
+    tz, jz = _pair(rng, shape, "bfloat16")
+    ts, js = _pair(rng, shape[-1:], "float32", scale=0.1, shift=1.0)
+    mine = ops.rmsnorm(tx, ts)
+    theirs = jax_layers.rmsnorm({"scale": js}, jx, 1e-5)
+    assert mine.dtype == torch.bfloat16
+    np.testing.assert_allclose(_np(mine), _np(theirs), **_tol("bfloat16"))
+    mine = ops.gated_rmsnorm(tx, tz, ts)
+    theirs = jax_ssm._gated_norm(js, jx, jz, 1e-5)
+    assert mine.dtype == torch.bfloat16
+    np.testing.assert_allclose(_np(mine), _np(theirs), **_tol("bfloat16"))
+
+
+def test_norm_wrappers_refuse_other_mixed_dtypes(monkeypatch):
+    """The kernels take the scale in the input's dtype, or float32 with
+    bfloat16 input; any other pair raises before anything is built."""
+    def no_build(*_a, **_k):
+        raise AssertionError("a refused call must not build or launch")
+
+    monkeypatch.setattr(_build, "build", no_build)
+    monkeypatch.setattr(_build, "load", no_build)
+    x = torch.randn(4, 64)
+    bf16_scale = torch.ones(64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="dtype"):
+        rn.rmsnorm(x, bf16_scale)
+    with pytest.raises(ValueError, match="dtype"):
+        rn.gated_rmsnorm(x, x, bf16_scale)
+    with pytest.raises(ValueError, match="dtype"):
+        rn.gated_rmsnorm(x.to(torch.bfloat16), x, torch.ones(64))
+    with pytest.raises(ValueError, match="dtype"):
+        rn.rmsnorm(x.to(torch.float16), torch.ones(64))
+
+
 @pytest.mark.parametrize("name", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape", [(2, 5, 64), (4, 1, 768)])
 def test_layers_rmsnorm_matches_jax_layers(shape, name):
@@ -287,12 +385,20 @@ def test_build_recipe(monkeypatch, tmp_path):
     shutil.copytree(_build.CSRC, csrc)
     monkeypatch.setattr(_build, "CSRC", csrc)
     assert {n: _build.library_path(n, nvcc) for n in _build.SOURCES} == paths
-    for n in ("flash_attention", "rmsnorm"):
+    for n in _build.SOURCES:
         assert '#include "mma.cuh"' in (csrc / f"{n}.cu").read_text()
     (csrc / "mma.cuh").write_text((csrc / "mma.cuh").read_text() + "\n")
-    for n in ("flash_attention", "rmsnorm"):
-        assert _build.library_path(n, nvcc) != paths[n]
-    assert _build.library_path("ssd", nvcc) == paths["ssd"]
+    edited = {n: _build.library_path(n, nvcc) for n in _build.SOURCES}
+    for n in _build.SOURCES:
+        assert edited[n] != paths[n]
+    (csrc / "extra.cuh").write_text("#pragma once\n")
+    (csrc / "rmsnorm.cu").write_text('#include "extra.cuh"\n'
+                                     + (csrc / "rmsnorm.cu").read_text())
+    with_extra = {n: _build.library_path(n, nvcc) for n in _build.SOURCES}
+    (csrc / "extra.cuh").write_text("#pragma once\n// edited\n")
+    for n in _build.SOURCES:
+        assert (_build.library_path(n, nvcc) != with_extra[n]) == \
+            (n == "rmsnorm")
 
 
 WRAPPERS = {"flash_attention": fa.flash_attention,
