@@ -3,10 +3,12 @@
 :func:`from_jax_params` takes the JAX package's parameter tree with numpy
 leaves (``jax.tree.map(np.asarray, params)`` on the JAX side) and returns
 the port's tree, the same layout with torch tensors, each in the dtype
-the port's ``param_spec`` gives it (the model dtype, or float32 for
-Mamba-2's A_log, D and dt_bias, as in the reference), so both packages
-compute the same function in the parity tests.  The
-stacked ``blocks`` leaves keep their leading ``n_periods`` axis.
+the port's ``param_spec`` gives it (the model dtype, or ``dtype`` where
+given, and float32 for Mamba-2's A_log, D and dt_bias, as in the
+reference), so both packages compute the same function in the parity
+tests; ``dtype=torch.float32`` carries the float32 masters of the
+reference's ``init_train_state`` across exactly.  The stacked ``blocks``
+leaves keep their leading ``n_periods`` axis.
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ from repro_torch import resolve_device
 from repro_torch.models.transformer import leaf_dtype, param_spec
 
 
-def from_jax_params(tree, cfg, device="cuda"):
+def from_jax_params(tree, cfg, device="cuda", *, dtype=None):
     """Numpy tree (the JAX package's layout) -> the port's tensor tree.
 
     Raises when a key or a shape differs from the port's ``param_spec``.
@@ -40,6 +42,6 @@ def from_jax_params(tree, cfg, device="cuda"):
             raise ValueError(f"params{path}: shape {arr.shape}, expected "
                              f"{shape}")
         return torch.from_numpy(arr).to(device=dev,
-                                        dtype=leaf_dtype(spec, cfg))
+                                        dtype=leaf_dtype(spec, cfg, dtype))
 
     return convert(tree, param_spec(cfg), "")

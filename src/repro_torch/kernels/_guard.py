@@ -5,10 +5,13 @@ import torch
 
 
 def refuse_autograd(name: str, *tensors) -> None:
-    """Raise when autograd would record the kernel: the kernels have no
-    backward, so their output would silently cut the gradient."""
+    """Raise when autograd would record the kernel: a wrapper has no
+    backward, so its output would silently cut the gradient (the
+    differentiable route is ``kernels.ops``, whose autograd Functions call
+    the wrappers with grad off)."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(
             f"{name}: the CUDA kernel has no backward, so it would cut the "
-            "gradient of inputs that require grad; call it under "
-            "torch.no_grad() or on tensors that do not require grad")
+            "gradient of inputs that require grad; call it through "
+            "repro_torch.kernels.ops, under torch.no_grad() or on tensors "
+            "that do not require grad")

@@ -91,13 +91,10 @@
 //   * Entries with j > i, where cs_i - cs_j > 0 and exp can overflow, are
 //     selected away and never multiplied.
 //
-// Both bodies take the block's cumsum the same way: a warp scan in double
-// (each lane a serial segment, then shuffles), rounded to fp32.  That is
-// what torch.cumsum of float32 does on the CPU, and it keeps the
-// differences cs_i - cs_j, whose absolute error grows with |cs|, the same
-// on the card as there.  The bf16 body first loads the dt of its HB heads
-// with all its threads at once into shared memory, where a warp a head
-// scans them, while the first tiles load.
+// Both bodies take the block's cumsum the same way: in fp32, left to
+// right, as the plain version does (chunk_cumsum).  The bf16 body first
+// loads the dt of its HB heads with all its threads at once into shared
+// memory, where one lane a head scans them, while the first tiles load.
 //
 // Shapes: the chunk length, the head and state widths are runtime values
 // (p <= 128, n <= 256); ragged edges are masked.  x, B and C are read
@@ -170,28 +167,35 @@ __host__ __device__ __forceinline__ size_t smem_floats(int l, int n, int p) {
          + TQ * W_STRIDE;
 }
 
-// cs[0, l_end) = cumsum(dt * A) of one head, by one warp: each lane sums
-// a segment in double, a warp scan of the lane totals gives each segment
-// its offset, and each sum is rounded to fp32.  dtc is the head's dt column
-// (stride h).
+// cs[0, l_end) = cumsum(dt * A) of one head in fp32, left to right, by
+// lane 0 of the calling warp: the order of the plain version's cumsum
+// (kernels/ref.py::cumsum_f32), so that both give the same sums bit for
+// bit (an fp32 cumsum in another order moves y by up to twice SSD_TOL at
+// a 256-token chunk).  Each product dt * A is rounded before it is added
+// (__fmul_rn keeps nvcc from fusing it into an FMA), as the plain version
+// rounds dtA.  dtc is the head's dt column (stride h).  The products of
+// 16 steps are loaded and rounded ahead, so that what is serial is the
+// adds alone; the bf16 body runs them while its first tiles load.
 __device__ __forceinline__ void chunk_cumsum(const float* dtc, int h, float a,
                                              int l_end, int lane, float* cs) {
-  const int seg = (l_end + 31) / 32;
-  const int lo = min(lane * seg, l_end), hi = min(lo + seg, l_end);
-  double run = 0.0;
-  for (int t = lo; t < hi; ++t)
-    run += static_cast<double>(dtc[static_cast<long long>(t) * h] * a);
-  double incl = run;
+  if (lane != 0) return;
+  constexpr int U = 16;
+  float run = 0.f;
+  int t = 0;
+  for (; t + U <= l_end; t += U) {
+    float d[U];
 #pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const double v = __shfl_up_sync(0xffffffffu, incl, off);
-    if (lane >= off) incl += v;
+    for (int u = 0; u < U; ++u)
+      d[u] = __fmul_rn(dtc[static_cast<long long>(t + u) * h], a);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      run += d[u];
+      cs[t + u] = run;
+    }
   }
-  run = incl - run;                     // the segment's offset
-  for (int t = lo; t < hi; ++t) {
-    const float d = dtc[static_cast<long long>(t) * h];
-    run += static_cast<double>(d * a);
-    cs[t] = static_cast<float>(run);
+  for (; t < l_end; ++t) {
+    run += __fmul_rn(dtc[static_cast<long long>(t) * h], a);
+    cs[t] = run;
   }
 }
 

@@ -7,7 +7,8 @@ not take; the CPU path lives in :mod:`repro_torch.kernels.ops`.  bfloat16
 runs on the tensor cores and reads q, k and v with 16-byte copies, so their
 base pointers and (batch, seq, head) strides must be 16-byte aligned;
 float32 is the exactness path (fp32 products).  There is no backward: with
-grad enabled, inputs that require grad raise.  ``launches`` counts the
+grad enabled, inputs that require grad raise (``kernels.ops`` is the
+differentiable route).  ``launches`` counts the
 kernel launches made through this module.
 """
 from __future__ import annotations

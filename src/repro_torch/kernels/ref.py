@@ -7,6 +7,7 @@ them on the card.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -46,12 +47,40 @@ def gated_rmsnorm_ref(y, z, scale, eps: float = 1e-5):
     return (h * torch.rsqrt(var + eps) * scale.to(F32)).to(y.dtype)
 
 
+class _CumsumCPU(torch.autograd.Function):
+    """Left-to-right float32 cumsum of a CPU tensor along ``dim``: numpy's
+    float32 accumulate (PyTorch's CPU kernel accumulates in double)."""
+
+    @staticmethod
+    def forward(ctx, x, dim):
+        ctx.dim = dim
+        return torch.from_numpy(np.cumsum(x.detach().numpy(), axis=dim,
+                                          dtype=np.float32))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.flip(ctx.dim).cumsum(ctx.dim).flip(ctx.dim), None
+
+
 def cumsum_f32(x, dim):
-    """float32 cumsum accumulated in float64.  The CPU already accumulates a
-    float32 cumsum in double and CUDA in float; doing it in double on both
-    keeps the card's decays, which are differences of these sums, within
-    rounding of the CPU's."""
-    return torch.cumsum(x, dim, dtype=torch.float64).to(F32)
+    """float32 cumsum accumulated in float32, as the reference's
+    ``jnp.cumsum`` of float32, and in one order on every device: left to
+    right, each sum rounded to float32.
+
+    The order matters: the decays are exp of differences of these sums,
+    and an fp32 cumsum in another order (a tree scan) moves the SSD block
+    of a 256-token chunk by up to twice its tolerance.  The SSD kernel
+    (``csrc/ssd.cu``) scans left to right too, so that it and this plain
+    version agree bit for bit.  On the card, ATen scans a dimension that
+    is not the innermost with one thread per column, left to right, but
+    the innermost one with a tree and a 1-D tensor with CUB: a trailing
+    dimension of two columns keeps every call on the first.  On the CPU
+    numpy's float32 accumulate does it."""
+    x = x.to(F32)
+    dim = dim % x.dim()
+    if x.is_cuda:
+        return torch.cumsum(x.unsqueeze(-1).expand(*x.shape, 2), dim)[..., 0]
+    return _CumsumCPU.apply(x, dim)
 
 
 def segsum(x):

@@ -4,7 +4,8 @@ _rmsnorm_kernel`` and ``:26 _gated_kernel``.
 
 Both take CUDA tensors only and raise on anything the kernel does not take;
 the CPU path lives in :mod:`repro_torch.kernels.ops`.  There is no
-backward: with grad enabled, inputs that require grad raise.  ``launches``
+backward: with grad enabled, inputs that require grad raise (``kernels.ops``
+is the differentiable route).  ``launches``
 counts the launches of the plain norm, ``gated_launches`` those of the
 gated one.
 """

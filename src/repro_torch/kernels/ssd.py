@@ -3,7 +3,8 @@
 
 Takes CUDA tensors only and raises on anything the kernel does not take;
 the CPU path lives in :mod:`repro_torch.kernels.ops`.  There is no
-backward: with grad enabled, inputs that require grad raise.  ``launches``
+backward: with grad enabled, inputs that require grad raise (``kernels.ops``
+is the differentiable route).  ``launches``
 counts the kernel launches made through this module; ``heads_per_block``
 is what the last launch took: the heads a block of the tensor-core body
 owned, or 0 for the CUDA-core body (float32, or bfloat16 rows off 16-byte

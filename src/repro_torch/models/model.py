@@ -1,5 +1,5 @@
 """Top-level model API (counterpart of ``repro.models.model``): init,
-prefill/decode and counting, dispatched on ``ModelConfig``."""
+loss, prefill/decode and counting, dispatched on ``ModelConfig``."""
 from __future__ import annotations
 
 import math
@@ -8,6 +8,8 @@ from repro_torch.models import transformer
 
 init_params = transformer.init_params
 forward_hidden = transformer.forward_hidden
+chunked_ce_loss = transformer.chunked_ce_loss
+lm_loss = transformer.lm_loss
 prefill = transformer.prefill
 decode_step = transformer.decode_step
 init_cache = transformer.init_cache

@@ -4,10 +4,10 @@ The chunked SSD algorithm [arXiv:2405.21060]: within a chunk the quadratic
 "attention-like" form, which is the SSD intra-chunk kernel's work
 (``kernels.ops.ssd_intra_chunk``, one launch for all chunks of a call),
 across chunks a linear state recurrence in plain PyTorch.  Decode is the
-O(1) recurrent step.  All decay math is fp32; cumulative sums accumulate in
-double (``kernels.ref.cumsum_f32``), so the card's decays agree with the
-CPU's.  The reference's ``_segsum`` is ``kernels.ref.segsum``, the
-building block of the kernel's plain version.
+O(1) recurrent step.  All decay math is fp32, cumulative sums included
+(``kernels.ref.cumsum_f32``), as in the reference.  The reference's
+``_segsum`` is ``kernels.ref.segsum``, the building block of the kernel's
+plain version.
 
 Shapes (grouped heads): x [B,S,H,P], dt [B,S,H], A [H], B/C [B,S,G,N] with
 H = G * HG heads per group.  Decode updates the conv and ssd cache views

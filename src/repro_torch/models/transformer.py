@@ -24,6 +24,7 @@ in place and returns the same tree.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.models import attention as attn_mod
@@ -234,10 +235,60 @@ def logits_last(params, cfg, hidden):
     """Logits of the last position, [B,V] in fp32: the products of the
     (bf16) inputs are summed in fp32, as ``preferred_element_type=F32``
     does in the reference."""
-    h = hidden[:, -1].to(F32)
+    return _logits(params, cfg, hidden[:, -1])
+
+
+def _logits(params, cfg, h):
+    """h [..., d] -> [..., V] fp32.  A bf16 product is exact in fp32, so
+    upcasting the inputs sums the bf16 products in fp32."""
+    h = h.to(F32)
     if cfg.tie_embeddings:
         return h @ params["embed"].to(F32).t()
     return h @ params["lm_head"].to(F32)
+
+
+def _chunk_loss(params, cfg, hc, lc):
+    """(sum of logsumexp - gold over labels >= 0, their count) of one
+    chunk; hc [B,C,d], lc [B,C]."""
+    logits = _logits(params, cfg, hc)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, lc.clamp(min=0)[..., None])[..., 0]
+    valid = lc >= 0
+    return torch.where(valid, lse - gold, 0.0).sum(), valid.sum()
+
+
+def chunked_ce_loss(params, cfg, hidden, labels):
+    """Mean CE over labels >= 0 without holding [B,S,V] logits (the
+    reference's ``chunked_ce_loss``).
+
+    hidden [B,S,d]; labels [B,S] integer (-1 = ignore).  The sequence is
+    padded with -1 labels to a multiple of ``min(cfg.loss_chunk, S)`` and
+    taken in chunks of that length; each chunk's logits are recomputed in
+    the backward (``torch.utils.checkpoint``, as the reference's
+    ``jax.checkpoint``), so one chunk's [B,C,V] logits live at a time.
+    """
+    B, S, _ = hidden.shape
+    C = min(cfg.loss_chunk, S)
+    pad = (-S) % C
+    if pad:
+        hidden = torch.nn.functional.pad(hidden, (0, 0, 0, pad))
+        labels = torch.nn.functional.pad(labels, (0, pad), value=-1)
+    loss_sum = torch.zeros((), dtype=F32, device=hidden.device)
+    count = torch.zeros((), dtype=torch.int64, device=hidden.device)
+    for start in range(0, S + pad, C):
+        part, n = checkpoint(
+            _chunk_loss, params, cfg, hidden[:, start:start + C],
+            labels[:, start:start + C], use_reentrant=False)
+        loss_sum, count = loss_sum + part, count + n
+    return loss_sum / count.clamp(min=1)
+
+
+def lm_loss(params, cfg, tokens, labels):
+    """Mean next-token CE of ``tokens`` [B,S] against ``labels`` [B,S]
+    (-1 = ignore), the reference's ``lm_loss`` for the configs
+    ``check_supported`` takes (no MoE auxiliary loss, no frontend)."""
+    hidden, _ = forward_hidden(params, cfg, tokens)
+    return chunked_ce_loss(params, cfg, hidden, labels)
 
 
 def prefill(params, cfg, tokens):

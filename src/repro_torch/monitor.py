@@ -10,7 +10,10 @@ from __future__ import annotations
 
 import dataclasses
 import threading
-from typing import Dict
+from typing import Dict, Optional, Tuple
+
+from repro_torch.models.transformer import model_dtype
+from repro_torch.roofline import hw
 
 
 @dataclasses.dataclass
@@ -92,3 +95,27 @@ def publish_step_utilization(job_name: str, *, model_flops_per_step: float,
         hbm_total_gb=hbm_total_gb, hbm_used_gb=hbm_used_gb,
         step_time_s=step_time_s,
         achieved_flops=model_flops_per_step / max(step_time_s, 1e-9)))
+
+
+def default_peak_flops(cfg) -> float:
+    """The H100 peak the duty cycle is measured against on a card: that of
+    the model's compute dtype (bf16 on the tensor cores, fp32 outside)."""
+    return hw.peak_flops(model_dtype(cfg))
+
+
+def device_figures(device, cfg, peak_flops: Optional[float],
+                   mem_total_gb: Optional[float], *, monitored: bool,
+                   job: str) -> Tuple[Optional[float], Optional[float]]:
+    """The peak FLOP/s and the memory (GB) a job's duty cycle is measured
+    against.  On a card each one not given defaults to
+    ``default_peak_flops(cfg)`` and the card's memory; on the CPU there is
+    no device figure, so a monitored ``job`` must be given both."""
+    if device.type == "cuda":
+        if peak_flops is None:
+            peak_flops = default_peak_flops(cfg)
+        if mem_total_gb is None:
+            mem_total_gb = hw.device_memory_bytes(device) / 1e9
+    elif monitored and (peak_flops is None or mem_total_gb is None):
+        raise ValueError(f"a monitored {job} on the CPU needs "
+                         "peak_flops and mem_total_gb")
+    return peak_flops, mem_total_gb

@@ -21,9 +21,8 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core.overload import DeviceObservation, OverloadController
 from repro_torch.models import model as model_lib
-from repro_torch.models.transformer import leaves, model_dtype
-from repro_torch.monitor import publish_step_utilization
-from repro_torch.roofline import hw
+from repro_torch.models.transformer import leaves
+from repro_torch.monitor import device_figures, publish_step_utilization
 
 # cache leaves with a time axis; the others (conv, ssd) are per-row states
 TIME_AXIS_LEAVES = ("k", "v")
@@ -54,16 +53,10 @@ class EngineConfig:
     device: str = "cuda"
     # Device figures for the duty cycle and the controller.  On a card they
     # default to the H100 data-sheet peak for the model's dtype
-    # (``default_peak_flops``) and the card's memory; on the
+    # (``monitor.default_peak_flops``) and the card's memory; on the
     # CPU there is no device figure, so a monitored engine needs both.
     peak_flops: Optional[float] = None
     mem_total_gb: Optional[float] = None
-
-
-def default_peak_flops(cfg) -> float:
-    """The H100 peak the duty cycle is measured against on a card: that of
-    the model's compute dtype (bf16 on the tensor cores, fp32 outside)."""
-    return hw.peak_flops(model_dtype(cfg))
 
 
 class ServeEngine:
@@ -78,17 +71,9 @@ class ServeEngine:
             if t.device.type != self.device.type:
                 raise ValueError(f"params on {t.device}, engine on "
                                  f"{self.device}")
-        self.peak_flops = ecfg.peak_flops
-        self.mem_total_gb = ecfg.mem_total_gb
-        if self.device.type == "cuda":
-            if self.peak_flops is None:
-                self.peak_flops = default_peak_flops(cfg)
-            if self.mem_total_gb is None:
-                self.mem_total_gb = hw.device_memory_bytes(self.device) / 1e9
-        elif ecfg.monitor and (self.peak_flops is None
-                               or self.mem_total_gb is None):
-            raise ValueError("a monitored engine on the CPU needs "
-                             "peak_flops and mem_total_gb")
+        self.peak_flops, self.mem_total_gb = device_figures(
+            self.device, cfg, ecfg.peak_flops, ecfg.mem_total_gb,
+            monitored=ecfg.monitor, job="engine")
         self.queue: deque = deque()
         self.completions: List[Completion] = []
         self.controller = OverloadController()

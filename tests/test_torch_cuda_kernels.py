@@ -281,6 +281,25 @@ def test_ssd_kernel_matches_plain(dev, N, l, h, p, g, n, dtype):
                                    atol=tol)
 
 
+@pytest.mark.parametrize("shape,dim", [((2, 2, 256, 1, 32), 2),
+                                       ((2, 32, 256), -1), ((3, 200), 1)])
+def test_cumsum_f32_sums_left_to_right_on_the_card(dev, shape, dim):
+    """The plain version's cumsum on the card, at the mamba serve's A_cum
+    shape ([b, nc, l, g, hg] along l), the SSD block's [N, h, l] and a 2-D
+    tensor: bit for bit a loop of float32 adds, left to right, and the
+    CPU's cumsum_f32, the order of the SSD kernel's scan."""
+    g = torch.Generator(device=dev).manual_seed(len(shape))
+    x = -torch.nn.functional.softplus(
+        torch.randn(shape, device=dev, generator=g))
+    acc, want = torch.zeros_like(x.select(dim, 0)), []
+    for i in range(x.shape[dim]):
+        acc = acc + x.select(dim, i)
+        want.append(acc)
+    got = ref.cumsum_f32(x, dim)
+    assert torch.equal(got, torch.stack(want, dim % x.dim()))
+    assert torch.equal(got.cpu(), ref.cumsum_f32(x.cpu(), dim))
+
+
 def test_ssd_kernel_reads_strided_views_and_selects_the_mask(dev):
     """x, B, C as slices of one buffer, as the model's conv output is; and
     decays so steep that exp above the diagonal is inf: no NaN."""

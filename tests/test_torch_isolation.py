@@ -75,8 +75,10 @@ def test_entry_points_need_a_card_unless_given_cpu(monkeypatch, capsys):
     from repro_torch import resolve_device
     from repro_torch.configs import reduced_config
     from repro_torch.launch import serve as launch_serve
+    from repro_torch.launch import train as launch_train
     from repro_torch.models import model as model_lib
     from repro_torch.serve.engine import EngineConfig, ServeEngine
+    from repro_torch.train import Trainer, TrainerConfig
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = reduced_config("llsc-100m")
@@ -89,6 +91,10 @@ def test_entry_points_need_a_card_unless_given_cpu(monkeypatch, capsys):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ServeEngine(cfg, params, EngineConfig())
     assert launch_serve.main(["--reduced", "--requests", "1"]) == 1
+    assert "no CUDA device" in capsys.readouterr().err
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(cfg, TrainerConfig(steps=1))
+    assert launch_train.main(["--reduced", "--steps", "1"]) == 1
     assert "no CUDA device" in capsys.readouterr().err
     assert resolve_device("cpu").type == "cpu"
 

@@ -1,6 +1,7 @@
 """The port's kernel layer on the CPU: the plain versions against the JAX
 package's Pallas kernels (interpret mode) and oracles, the CPU routing of
-``kernels.ops``, the wrappers' refusals, and the nvcc build recipe.
+``kernels.ops`` and its differentiable card routes (with stand-ins for the
+wrappers), the wrappers' refusals, and the nvcc build recipe.
 
 Tolerances are the reference's own (tests/test_kernels.py): 2e-5 in
 float32, 2e-2 in bfloat16 for the norms and attention; 2e-4 for the SSD
@@ -23,7 +24,7 @@ from repro.kernels.rmsnorm import rmsnorm as jax_rmsnorm  # noqa: E402
 from repro.kernels.ssd import ssd_intra_chunk as jax_ssd  # noqa: E402
 from repro.models import ssm as jax_ssm  # noqa: E402
 from repro.models import layers as jax_layers  # noqa: E402
-from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels import _build, _guard, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import rmsnorm as rn  # noqa: E402
 from repro_torch.kernels import ssd  # noqa: E402
@@ -235,6 +236,25 @@ def _ssd_tensor_core_emulation(terms):
     got = y.transpose(1, 2)
     err = (got - want).abs() / (SSD_TOL + SSD_TOL * want.abs())
     return float(err.max())
+
+
+def test_cumsum_f32_sums_left_to_right_in_float32():
+    """The plain version's cumsum takes the order of the SSD kernel's scan
+    (csrc/ssd.cu::chunk_cumsum): left to right, each sum rounded to
+    float32, bit for bit (PyTorch's CPU cumsum would accumulate in double).
+    Its gradient is the reversed cumsum."""
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (3, 256, 4), dtype=np.float32) * 0.7)
+    acc, want = torch.zeros(3, 4), []
+    for t in range(256):
+        acc = acc + x[:, t]
+        want.append(acc)
+    assert torch.equal(ref.cumsum_f32(x, 1), torch.stack(want, 1))
+    assert not torch.equal(torch.cumsum(x, 1), torch.stack(want, 1))
+    xg = x.clone().requires_grad_()
+    ref.cumsum_f32(xg, -2).sum().backward()
+    rev = torch.arange(256, 0, -1, dtype=torch.float32)[None, :, None]
+    assert torch.equal(xg.grad, rev.expand(3, 256, 4))
 
 
 def test_ssd_tensor_core_arithmetic_meets_ssd_tol():
@@ -454,6 +474,86 @@ def test_cpu_routes_stay_differentiable(name):
     out.float().square().sum().backward()
     g = args[1].grad
     assert g is not None and torch.isfinite(g).all() and g.abs().sum() > 0
+
+
+ROUTES = {"flash_attention": ("FlashAttention", fa, "flash_attention",
+                               ref.attention_ref),
+          "flash_attention_bshd": ("FlashAttentionBSHD", fa,
+                                   "flash_attention_bshd",
+                                   ops._attention_bshd_ref),
+          "rmsnorm": ("RMSNorm", rn, "rmsnorm", ref.rmsnorm_ref),
+          "gated_rmsnorm": ("GatedRMSNorm", rn, "gated_rmsnorm",
+                            ref.gated_rmsnorm_ref),
+          "ssd_intra_chunk": ("SSDIntraChunk", ssd, "ssd_intra_chunk",
+                              ref.ssd_intra_chunk_ref)}
+
+
+def _route_inputs(name, dtype):
+    """Inputs of the entry point ``name`` in ``dtype`` (dt and A float32,
+    and the norms' scale float32 with bfloat16 input, as training gives
+    them), every one requiring grad, and its keyword arguments."""
+    rng = np.random.default_rng(11)
+
+    def t(*shape, dt=dtype):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
+                                ).to(dt).requires_grad_()
+
+    if name == "flash_attention":
+        return [t(1, 4, 64, 32), t(1, 2, 64, 32), t(1, 2, 64, 32)], {}
+    if name == "flash_attention_bshd":
+        return [t(1, 64, 4, 32), t(1, 64, 2, 32), t(1, 64, 2, 32)], {}
+    if name == "rmsnorm":
+        return [t(2, 5, 64), t(64, dt=torch.float32)], {"eps": 1e-5}
+    if name == "gated_rmsnorm":
+        return [t(3, 64), t(3, 64), t(64, dt=torch.float32)], {"eps": 1e-5}
+    x, dt, A, B, C = [torch.from_numpy(a) for a in _ssd_data(2, 16, 4, 8, 2, 8)]
+    return ([x.to(dtype).requires_grad_(), dt.requires_grad_(),
+             A.requires_grad_(), B.to(dtype).requires_grad_(),
+             C.to(dtype).requires_grad_()], {"out_dtype": torch.float32})
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(ROUTES))
+def test_kernel_routes_differentiate_through_the_plain_version(
+        name, dtype, monkeypatch):
+    """On the card an entry point whose input requires grad goes through
+    its ``autograd.Function``: forward the wrapper (here standing in: the
+    wrapper's own autograd guard, then the plain version), backward the
+    vector-Jacobian product of the plain version.  Its gradients equal the
+    plain route's, each in its input's dtype, with one launch a call; with
+    no input requiring grad the Function is not entered."""
+    fn_name, module, attr, plain = ROUTES[name]
+    launches = []
+
+    def stand_in(*args, **kw):
+        _guard.refuse_autograd(attr, *args)
+        launches.append(attr)
+        return plain(*args, **kw)
+
+    monkeypatch.setattr(module, attr, stand_in)
+    monkeypatch.setattr(ops, "_on_card", lambda t: True)
+    inputs, kw = _route_inputs(name, dtype)
+    out = getattr(ops, name)(*inputs, **kw)
+    assert launches == [attr] and type(out.grad_fn).__name__ == \
+        f"{fn_name}Backward"
+    (0.5 * out.float().square().sum()).backward()
+    got = [x.grad for x in inputs]
+    twins = [x.detach().clone().requires_grad_() for x in inputs]
+    (0.5 * plain(*twins, **kw).float().square().sum()).backward()
+    for g, x, twin in zip(got, inputs, twins):
+        assert g is not None and g.dtype == x.dtype
+        assert torch.equal(g, twin.grad)
+    # no input requiring grad, or grad disabled: the wrapper, no Function
+    def no_function(*_a, **_k):
+        raise AssertionError("the serve path must not enter the Function")
+
+    monkeypatch.setattr(getattr(ops, fn_name), "apply", no_function)
+    launches.clear()
+    detached = [x.detach() for x in inputs]
+    assert getattr(ops, name)(*detached, **kw).grad_fn is None
+    with torch.no_grad():
+        getattr(ops, name)(*inputs, **kw)
+    assert launches == [attr, attr]
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):

@@ -159,13 +159,14 @@ def test_registry_aggregates_jobs():
                                           ("llsc-100m", True),
                                           ("mamba2-370m", False)])
 def test_card_duty_peak_follows_the_model_dtype(arch, reduced):
-    """On a card the engine measures its duty against the H100 peak of the
-    model's compute dtype: bf16 on the tensor cores for the full configs,
-    fp32 outside them for the float32 reduced one."""
+    """On a card the engine and the trainer measure their duty against the
+    H100 peak of the model's compute dtype: bf16 on the tensor cores for
+    the full configs, fp32 outside them for the float32 reduced one."""
     from repro_torch.configs import get_config
+    from repro_torch.monitor import default_peak_flops
     from repro_torch.roofline import hw
 
     cfg = reduced_config(arch) if reduced else get_config(arch)
     want = hw.PEAK_FLOPS_FP32 if cfg.dtype == "float32" \
         else hw.PEAK_FLOPS_BF16
-    assert engine.default_peak_flops(cfg) == want
+    assert default_peak_flops(cfg) == want

@@ -1,0 +1,436 @@
+"""The port's training against the JAX package's on reduced llsc-100m, on
+the CPU: the chunked loss, the gradients of ``lm_loss`` with respect to
+the float32 masters (flash path on and off, float32 and bfloat16), one
+AdamW update and its schedule, the weight-decay mask, and three train
+steps, each on the same weights (the reference's float32 masters, carried
+across by the bridge) and the JAX package's own batches.  Then the port's
+own data generator, ``Trainer.run`` and ``launch.train`` on the CPU.
+
+Tolerances, each the reference's own where it has one: 1e-5 for the loss
+in float32; 5e-3 absolute for float32 gradients
+(tests/test_flash_integration.py), and 1e-4 of each leaf's largest
+gradient, since a mean loss over B * S tokens has gradients far below 5e-3;
+2e-2 of each leaf's largest gradient in bfloat16 (the kernels' bf16
+tolerance, tests/test_kernels.py); 1e-6 for one AdamW update; after N
+steps, parameters held by chip_smoke.py's ``update_gaps``, the bounds its
+phase 13 holds the card to: where the step-1 gradient is at least 1e-2 of
+its leaf's largest, within 1e-2 * (lr_1 + ... + lr_N) plus the rounding of
+the stored parameters; elsewhere within 2 * (lr_1 + ... + lr_N) + 1e-6,
+the bound of Adam's sign-like first updates on elements whose gradient is
+near 0 (where the two sides may take opposite signs).
+"""
+import dataclasses
+import importlib.util
+import math
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.configs import get_config as jax_get_config  # noqa: E402
+from repro.configs import reduced_config as jax_reduced  # noqa: E402
+from repro.models import init_params as jax_init  # noqa: E402
+from repro.models import transformer as jax_tf  # noqa: E402
+from repro.models.perf_flags import PerfFlags as JaxFlags  # noqa: E402
+from repro.models.perf_flags import perf_flags as jax_perf_flags  # noqa: E402
+from repro.train import DataConfig as JaxDataConfig  # noqa: E402
+from repro.train import SyntheticLM as JaxSyntheticLM  # noqa: E402
+from repro.train import optimizer as jax_opt  # noqa: E402
+from repro.train import train_step as jax_ts  # noqa: E402
+from repro_torch.bridge import from_jax_params  # noqa: E402
+from repro_torch.configs import reduced_config  # noqa: E402
+from repro_torch.launch import train as launch_train  # noqa: E402
+from repro_torch.models import model as model_lib  # noqa: E402
+from repro_torch.models import transformer as tf  # noqa: E402
+from repro_torch.models.perf_flags import PerfFlags, perf_flags  # noqa: E402
+from repro_torch.monitor import JobRegistry  # noqa: E402
+from repro_torch.train import (DataConfig, SyntheticLM, Trainer,  # noqa: E402
+                               TrainerConfig)
+from repro_torch.train import optimizer as opt  # noqa: E402
+from repro_torch.train import train_step as ts  # noqa: E402
+
+F32 = torch.float32
+B, S = 2, 64        # S a multiple of min(128, S): the flash gate holds
+
+
+def _chip_smoke():
+    """chip_smoke.py as a module (it imports torch only in main)."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _configs(dtype="float32", **changes):
+    jcfg = dataclasses.replace(jax_reduced("llsc-100m"), dtype=dtype,
+                               **changes)
+    cfg = dataclasses.replace(reduced_config("llsc-100m"), dtype=dtype,
+                              **changes)
+    return jcfg, cfg
+
+
+def _masters(jcfg, cfg, seed=0):
+    """The reference's float32 masters, as JAX and as the port's tree."""
+    jstate = jax_ts.init_train_state(jcfg, jax.random.PRNGKey(seed),
+                                     jax_ts.default_opt_cfg(jcfg))
+    params = from_jax_params(jax.tree.map(np.asarray, jstate.params), cfg,
+                             "cpu", dtype=F32)
+    return jstate, params
+
+
+def _jax_batch(cfg, step, batch=B, seq=S):
+    b = JaxSyntheticLM(JaxDataConfig(cfg.vocab_size, seq, batch, 0)).batch(
+        step)
+    return b, {k: torch.from_numpy(np.asarray(v).astype(np.int64))
+               for k, v in b.items()}
+
+
+def _paths(tree, path=()):
+    """{keystr: leaf} of a nested dict, keyed as jax.tree_util.keystr."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_paths(v, path + (k,)))
+        return out
+    return {"".join(f"[{k!r}]" for k in path): tree}
+
+
+def _jax_paths(tree):
+    return {jax.tree_util.keystr(p): np.asarray(a, np.float32) for p, a in
+            jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+def _t(x):
+    return x.detach().to(F32).numpy()
+
+
+# --------------------------------------------------------------------------
+# (a) the chunked loss
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("tied", [True, False])
+def test_chunked_ce_loss_matches_jax(tied):
+    """S = 50 is no multiple of loss_chunk (32), so the last chunk is padded
+    with -1 labels; a quarter of the labels are -1 as well.  float32,
+    1e-5."""
+    jcfg, cfg = _configs(tie_embeddings=tied)
+    rng = np.random.default_rng(3)
+    d, V, seq = cfg.d_model, cfg.vocab_size, 50
+    params = {"embed": rng.standard_normal((V, d), dtype=np.float32) * 0.1}
+    if not tied:
+        params["lm_head"] = rng.standard_normal((d, V),
+                                                dtype=np.float32) * 0.1
+    hidden = rng.standard_normal((B, seq, d), dtype=np.float32)
+    labels = rng.integers(0, V, (B, seq))
+    labels[rng.random((B, seq)) < 0.25] = -1
+    want = jax_tf.chunked_ce_loss(
+        {k: jnp.asarray(v) for k, v in params.items()}, jcfg,
+        jnp.asarray(hidden), jnp.asarray(labels, jnp.int32))
+    got = tf.chunked_ce_loss({k: torch.from_numpy(v)
+                              for k, v in params.items()}, cfg,
+                             torch.from_numpy(hidden),
+                             torch.from_numpy(labels))
+    assert got.dtype == F32
+    assert abs(float(got) - float(want)) <= 1e-5 * abs(float(want))
+
+
+def test_chunked_ce_loss_of_no_valid_label_is_zero():
+    """The mean divides by max(count, 1), as the reference's."""
+    _, cfg = _configs()
+    hidden = torch.randn(1, 8, cfg.d_model)
+    params = {"embed": torch.randn(cfg.vocab_size, cfg.d_model)}
+    loss = tf.chunked_ce_loss(params, cfg, hidden,
+                              torch.full((1, 8), -1, dtype=torch.int64))
+    assert float(loss) == 0.0
+
+
+# --------------------------------------------------------------------------
+# (b) gradients of lm_loss with respect to the float32 masters
+# --------------------------------------------------------------------------
+
+
+def _grads(jcfg, cfg, flash):
+    jstate, params = _masters(jcfg, cfg)
+    jb, batch = _jax_batch(cfg, 0)
+
+    def jloss(p):
+        return jax_tf.lm_loss(jax_ts.cast_params(p, jcfg.dtype), jcfg,
+                              jb["tokens"], jb["labels"])
+
+    with jax_perf_flags(JaxFlags(flash_kernel=flash)):
+        jl, jg = jax.value_and_grad(jloss)(jstate.params)
+    with perf_flags(PerfFlags(flash_kernel=flash)):
+        loss, grads = ts.loss_and_grads(params, cfg, batch)
+    return float(jl), _jax_paths(jg), float(loss), _paths(grads)
+
+
+@pytest.mark.parametrize("flash", [False, True])
+def test_lm_loss_gradients_match_jax_float32(flash):
+    """Each leaf within 5e-3 absolute and within 1e-4 of its largest
+    gradient; the test prints each leaf's largest and the worst ratio."""
+    jcfg, cfg = _configs()
+    jl, jg, loss, grads = _grads(jcfg, cfg, flash)
+    assert abs(loss - jl) <= 1e-5 * abs(jl)
+    assert set(grads) == set(jg)
+    worst = 0.0
+    for key, g in grads.items():
+        assert g.dtype == F32 and tuple(g.shape) == jg[key].shape, key
+        err = float(np.max(np.abs(_t(g) - jg[key])))
+        peak = float(np.max(np.abs(jg[key])))
+        print(f"{key}: max |jax grad| {peak:.3e}, max |grad - jax| {err:.3e}")
+        worst = max(worst, err / peak)
+        assert err < 5e-3, (key, err)
+        assert err <= 1e-4 * peak, (key, err, peak)
+    print(f"worst |grad - jax grad| / max|jax grad| over leaves: {worst:.3e}")
+
+
+@pytest.mark.parametrize("flash", [False, True])
+def test_lm_loss_gradients_match_jax_bfloat16(flash):
+    """bf16 compute: ``cast_params`` makes the stacked ln1/ln2 scales bf16
+    and leaves final_norm's scale float32, on both sides.  Each leaf within
+    2e-2 of its largest gradient."""
+    jcfg, cfg = _configs("bfloat16")
+    jl, jg, loss, grads = _grads(jcfg, cfg, flash)
+    assert abs(loss - jl) <= 2e-2 * abs(jl)
+    worst = 0.0
+    for key, g in grads.items():
+        assert g.dtype == F32, key
+        peak = float(np.max(np.abs(jg[key])))
+        ratio = float(np.max(np.abs(_t(g) - jg[key]))) / peak
+        worst = max(worst, ratio)
+        assert ratio <= 2e-2, (key, ratio)
+    print(f"worst |grad - jax grad| / max|jax grad| over leaves: {worst:.3e}")
+
+
+def test_cast_params_keeps_one_dimensional_leaves_float32():
+    """The trap of the reference's ``cast_params``: ndim > 1 decides, so the
+    stacked [n_periods, d] norm scales become bf16, final_norm's [d] not."""
+    jcfg, cfg = _configs("bfloat16")
+    _, params = _masters(jcfg, cfg)
+    cast = _paths(ts.cast_params(params, "bfloat16"))
+    assert cast["['blocks']['0']['ln1']['scale']"].dtype == torch.bfloat16
+    assert cast["['blocks']['0']['mixer']['wq']"].dtype == torch.bfloat16
+    assert cast["['final_norm']['scale']"].dtype == F32
+    jstate, _ = _masters(jcfg, cfg)
+    jcast = jax_ts.cast_params(jstate.params, "bfloat16")
+    jdt = {jax.tree_util.keystr(p): str(a.dtype) for p, a in
+           jax.tree_util.tree_flatten_with_path(jcast)[0]}
+    assert {k: str(v.dtype).split(".")[1] for k, v in cast.items()} == jdt
+
+
+# --------------------------------------------------------------------------
+# (c) AdamW and its schedule; (d) the weight-decay mask
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("grad_scale", [1e-3, 10.0])   # unclipped, clipped
+def test_adamw_update_matches_jax(grad_scale):
+    jcfg, cfg = _configs()
+    jstate, params = _masters(jcfg, cfg)
+    rng = np.random.default_rng(5)
+    jp = jstate.params
+    draw = {k: rng.standard_normal(v.shape, dtype=np.float32)
+            for k, v in _jax_paths(jp).items()}
+    treedef = jax.tree_util.tree_structure(jp)
+    keys = list(_jax_paths(jp))
+
+    def jtree(fn):
+        return jax.tree_util.tree_unflatten(
+            treedef, [jnp.asarray(fn(draw[k])) for k in keys])
+
+    def ttree(fn):
+        flat = {k: torch.from_numpy(np.asarray(fn(draw[k]))) for k in keys}
+        return _unpaths(params, flat)
+
+    grads = (lambda a: a * grad_scale)
+    m = (lambda a: a * 0.01)
+    v = (lambda a: np.abs(a) * 1e-4)
+    ocfg = jax_opt.AdamWConfig(warmup_steps=4, total_steps=20)
+    jnew, jst, jmet = jax_opt.adamw_update(
+        jp, jtree(grads), jax_opt.AdamWState(jnp.int32(6), jtree(m),
+                                             jtree(v)), ocfg)
+    pcfg = opt.AdamWConfig(warmup_steps=4, total_steps=20)
+    new, st, met = opt.adamw_update(params, ttree(grads),
+                                    opt.AdamWState(6, ttree(m), ttree(v)),
+                                    pcfg)
+    assert st.step == 7 == int(jst.step)
+    assert math.isclose(met["lr"], float(jmet["lr"]), rel_tol=1e-6)
+    assert math.isclose(float(met["grad_norm"]), float(jmet["grad_norm"]),
+                        rel_tol=1e-6)
+    for mine, theirs in ((new, jnew), (st.m, jst.m), (st.v, jst.v)):
+        want = _jax_paths(theirs)
+        for key, t in _paths(mine).items():
+            assert t.dtype == F32
+            np.testing.assert_allclose(_t(t), want[key], rtol=1e-6,
+                                       atol=1e-6, err_msg=key)
+
+
+def _unpaths(like, flat):
+    """``flat`` ({keystr: tensor}) arranged as ``like``."""
+    def build(node, path):
+        if isinstance(node, dict):
+            return {k: build(v, path + (k,)) for k, v in node.items()}
+        return flat["".join(f"[{k!r}]" for k in path)]
+    return build(like, ())
+
+
+def test_lr_schedule_matches_jax():
+    ocfg = jax_opt.AdamWConfig(warmup_steps=10, total_steps=50)
+    pcfg = opt.AdamWConfig(warmup_steps=10, total_steps=50)
+    for step in (1, 10, 30, 50):     # 1, warmup, mid-decay, total
+        want = float(jax_opt.lr_schedule(ocfg, jnp.int32(step)))
+        assert math.isclose(opt.lr_schedule(pcfg, step), want, rel_tol=1e-6)
+    assert math.isclose(opt.lr_schedule(pcfg, 1), 3e-4 / 10)
+
+
+@pytest.mark.parametrize("arch", ["llsc-100m", "mamba2-370m"])
+def test_decay_mask_matches_jax(arch):
+    """Over every leaf of the full-size tree (shapes only): the mask reads
+    the reference's key string, so A_log, D, dt_bias and every norm scale
+    are not decayed, and conv_b is."""
+    jcfg = jax_get_config(arch)
+    shapes = jax.eval_shape(lambda k: jax_init(jcfg, k),
+                            jax.random.PRNGKey(0))
+    want = {jax.tree_util.keystr(p): jax_opt._decay_mask(p) for p, _ in
+            jax.tree_util.tree_flatten_with_path(shapes)[0]}
+    from repro_torch.configs import get_config
+
+    spec = tf.param_spec(get_config(arch))
+    got = {}
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, path + (k,))
+        else:
+            got["".join(f"[{k!r}]" for k in path)] = opt._decay_mask(path)
+
+    walk(spec, ())
+    assert got == want
+    assert not all(got.values()) and any(got.values())
+
+
+# --------------------------------------------------------------------------
+# (e) three train steps
+# --------------------------------------------------------------------------
+
+
+def test_three_train_steps_match_jax():
+    """Losses within 1e-5 relative, parameters within ``update_gaps``'
+    bounds; an optimizer that does not step, or steps the wrong way, fails
+    those bounds."""
+    jcfg, cfg = _configs()
+    jstate, params = _masters(jcfg, cfg)
+    p0 = {k: v.clone() for k, v in _paths(params).items()}
+    jb, batch = _jax_batch(cfg, 0)
+    g1 = _jax_paths(jax.grad(lambda p: jax_tf.lm_loss(
+        p, jcfg, jb["tokens"], jb["labels"]))(jstate.params))
+    jstep = jax.jit(jax_ts.make_train_step(jcfg, jax_ts.default_opt_cfg(
+        jcfg, total_steps=3)))
+    ocfg = ts.default_opt_cfg(cfg, total_steps=3)
+    step_fn = ts.make_train_step(cfg, ocfg)
+    state = ts.TrainState(params, opt.init_opt_state(params, ocfg))
+    lrs = []
+    for k in range(3):
+        jb, batch = _jax_batch(cfg, k)
+        jstate, jmet = jstep(jstate, jb)
+        state, met = step_fn(state, batch)
+        assert abs(float(met["loss"]) - float(jmet["loss"])) <= \
+            1e-5 * abs(float(jmet["loss"]))
+        lrs.append(met["lr"])
+    want = {k: torch.from_numpy(v.copy()) for k, v in
+            _jax_paths(jstate.params).items()}
+    g1 = {k: torch.from_numpy(v.copy()) for k, v in g1.items()}
+    got = _paths(state.params)
+    assert all(t.dtype == F32 for t in got.values())
+    assert state.opt.step == 3
+    update_gaps = _chip_smoke().update_gaps
+    tight, loose, held = update_gaps(got, want, g1, lrs)
+    print(f"tight {tight:.3e} on {held:.2%} of the elements, loose "
+          f"{loose:.3e}")
+    assert tight <= 1 and loose <= 1, (tight, loose)
+    assert held > 0.25
+    # planted faults: no step at all, and every step's sign flipped
+    flipped = {k: 2 * p0[k] - want[k] for k in want}
+    for fault in (p0, flipped):
+        assert update_gaps(fault, want, g1, lrs)[0] > 10
+
+
+# --------------------------------------------------------------------------
+# (f) the port's data
+# --------------------------------------------------------------------------
+
+
+def test_synthetic_lm_structure_and_zipf_marginal():
+    data = SyntheticLM(DataConfig(vocab_size=512, seq_len=255, batch_size=64,
+                                  seed=3))
+    b = data.batch(7)
+    tokens, labels = b["tokens"], b["labels"]
+    assert tokens.shape == labels.shape == (64, 255)
+    assert torch.equal(data.batch(7)["tokens"], tokens)       # (seed, step)
+    assert not torch.equal(data.batch(8)["tokens"], tokens)
+    other = SyntheticLM(DataConfig(512, 255, 64, seed=4)).batch(7)
+    assert not torch.equal(other["tokens"], tokens)
+    assert torch.equal(labels[:, :-1], tokens[:, 1:])         # shifted by one
+    full = torch.cat([tokens, labels[:, -1:]], dim=1)         # [B, S + 1]
+    half = 256 // 2
+    assert torch.equal(full[:, half:2 * half], full[:, :half])
+    # rank 1 (token 0) of Zipf 1.1 over 512, in the first halves only
+    # (the second halves repeat them): within 5 standard deviations
+    p0 = 1.0 / sum(1.0 / r ** 1.1 for r in range(1, 513))
+    n = full[:, :half].numel()
+    freq = float((full[:, :half] == 0).sum()) / n
+    assert abs(freq - p0) <= 5 * math.sqrt(p0 * (1 - p0) / n), (freq, p0)
+    assert int(full.max()) < 512 and int(full.min()) >= 0
+
+
+# --------------------------------------------------------------------------
+# (g) Trainer and launch.train on the CPU
+# --------------------------------------------------------------------------
+
+
+def test_trainer_runs_on_the_cpu_and_publishes():
+    cfg = reduced_config("llsc-100m")
+    tcfg = TrainerConfig(steps=3, batch_size=2, seq_len=32, device="cpu",
+                         job_name="test:trainer", peak_flops=1e12,
+                         mem_total_gb=16.0)
+    trainer = Trainer(cfg, tcfg)
+    out = trainer.run()
+    assert len(out["losses"]) == 3
+    assert all(math.isfinite(x) for x in out["losses"])
+    assert [h["step"] for h in trainer.history] == [0, 1, 2]
+    pub = JobRegistry.global_registry().entries()["test:trainer"]
+    assert pub.duty_cycle > 0 and pub.hbm_total_gb == 16.0
+    assert pub.hbm_used_gb > 0 and pub.n_devices == 1
+    assert out["state"].opt.step == 3
+    with pytest.raises(ValueError, match="peak_flops and mem_total_gb"):
+        Trainer(cfg, dataclasses.replace(tcfg, peak_flops=None))
+
+
+def test_launch_train_on_the_cpu(capsys):
+    rc = launch_train.main(["--reduced", "--device", "cpu", "--steps", "3",
+                            "--batch", "2", "--seq", "64", "--peak-flops",
+                            "1e12", "--mem-total-gb", "16", "--flags",
+                            "flash_kernel"])
+    assert rc == 0
+    out = capsys.readouterr().out
+    losses = [float(x) for x in
+              out.split("[launch.train] losses:")[1].splitlines()[0].split()]
+    assert len(losses) == 3 and all(math.isfinite(x) for x in losses)
+    assert "[launch.train] done: steps=3 final_loss=" in out
+    pub = JobRegistry.global_registry().entries()["train:llsc-100m-reduced"]
+    assert 0 < pub.duty_cycle
+
+
+def test_launch_train_usage_errors(capsys):
+    assert launch_train.main(["--flags", "no_such_flag"]) == 2
+    assert launch_train.main(["--arch", "no-such-arch"]) == 2
+    assert launch_train.main(["--device", "cpu", "--reduced"]) == 2
+    assert launch_train.main(["--steps", "0"]) == 2
+    capsys.readouterr()
