@@ -63,10 +63,11 @@ It imports nothing of JAX or of the JAX package.  Phases:
     against the plain route's within phase 3's tolerances;
 11. train llsc-100m at full width and depth in bfloat16 (float32 masters)
     through ``launch.train.main``: 22 AdamW steps of 8 x 256 tokens with
-    ``flash_kernel``, counters set to 0 just before and reading exactly
-    flash = 12 x steps and rmsnorm = 25 x steps; finite losses, the
-    registry's duty in (0, 1], the median step time and tokens/s of steps
-    3-22, and peak memory;
+    ``flash_kernel`` under the config's ``remat = "full"``, counters set to
+    0 just before and reading exactly flash = 24 x steps and rmsnorm = 49 x
+    steps (every block's kernels run again in the backward's recompute; the
+    final norm once); finite losses, the registry's duty in (0, 1], the
+    median step time and tokens/s of steps 3-22, and peak memory;
 12. one train step under ``torch.profiler``: the device time of flash,
     RMSNorm, the GEMMs, the plain-version backwards of attention and
     RMSNorm, and the rest, and the busy share;
@@ -76,8 +77,24 @@ It imports nothing of JAX or of the JAX package.  Phases:
     its largest, parameters where the step-1 gradient is at least 1e-2 of
     its leaf's largest within 1e-2 (lr_1 + lr_2) plus their rounding, and
     elsewhere within 2 (lr_1 + lr_2) + 1e-6;
-14. one ``{"kernels": [...]}`` line (launches of flash and rmsnorm from 4,
-    of the gated norm and SSD from 7), the nvidia-smi line, and last the
+14. train mamba2-370m at full width and depth as 11 (no flash): rmsnorm =
+    97, gated = 96 and ssd = 96 launches a step, no flash;
+15. one mamba2-370m train step under ``torch.profiler``, as 12, with the
+    SSD, gated-norm and RMSNorm kernels and plain-version backwards;
+16. mamba2-370m training in float32 on the card and on the CPU, as 13, at
+    full width and 4 of its 48 layers (the CPU side's time);
+17. one llsc-100m forward and backward at full width in bfloat16 under
+    remat "none", "full" and "dots" from the same masters and batch: the
+    same loss, gradients within 13's bounds, exact launches, peak memory
+    under "full" below "none"'s; the three peaks and times;
+18. checkpoint, crash and resume on the card (llsc-100m, 8 steps, a
+    checkpoint every 2, a crash at step 5): the latest step is 4, the
+    restored state equals the saved one bit for bit, the resume starts at
+    4 and ends at the uninterrupted final loss within 1e-4 relative, an
+    async save writes the same files; save and restore times, bytes;
+19. the launches of each main path (the serves of 4 and 7, the train runs
+    of 11 and 14), one ``{"kernels": [...]}`` line (each kernel's launches
+    summed over those paths), the nvidia-smi line, and last the
     ``{"ok": true, ...}`` line.
 
 Any failed check raises, and the script exits non-zero; without a CUDA
@@ -280,10 +297,13 @@ def phase_kernels(torch, fa, rn, ref, hw):
         (1, 2, 2, 128, 32, False), (1, 12, 12, 128, 64, True),
         (1, 12, 12, 256, 64, True), (2, 4, 2, 100, 64, True),
         (1, 12, 12, 1024, 64, True), (1, 8, 2, 320, 128, True),
-        (1, 4, 2, 16, 64, True), (1, 4, 2, 1, 64, True)]
-    # llsc-100m's and mamba2-370m's rows, then widths of the scalar body
+        (1, 4, 2, 16, 64, True), (1, 4, 2, 1, 64, True),
+        (8, 12, 12, 256, 64, True)]     # a llsc-100m train step
+    # llsc-100m's and mamba2-370m's rows (serve, train step), then widths of
+    # the scalar body
     rms_cases = [(32, 128), (33, 256), (7, 64), (4, 768), (256, 768),
-                 (4, 1024), (320, 1024), (5, 100), (3, 101)]
+                 (2048, 768), (4, 1024), (320, 1024), (2048, 1024), (5, 100),
+                 (3, 101)]
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[1]
         for B, H, Hk, S, D, causal in flash_cases:
@@ -323,15 +343,16 @@ def phase_kernels(torch, fa, rn, ref, hw):
     check_refusals(torch, fa, rn, randn)
 
     # Timings at the main paths' shapes, bf16: the attention of llsc-100m's
-    # prefills of 128 and 256 tokens, and a norm over a decode step's 4
-    # slots (2 in 3 norm launches of the serve) beside a prefill's rows, at
-    # llsc-100m's width (768) and mamba2-370m's (1024).  The kernels line
-    # keeps S = 256 and 4 rows of 768.
+    # prefills of 128 and 256 tokens and of a train step (8 x 256), and a
+    # norm over a decode step's 4 slots (2 in 3 norm launches of the serve)
+    # beside a prefill's rows and a train step's 2048, at llsc-100m's width
+    # (768) and mamba2-370m's (1024).  The kernels line keeps B = 1, S =
+    # 256 and 4 rows of 768.
     F = torch.nn.functional
     rows = []
     bf16 = torch.bfloat16
-    B, H, D = 1, 12, 64
-    for S in (128, 256):
+    H, D = 12, 64
+    for B, S in ((8, 256), (1, 128), (1, 256)):
         q, k, v = (randn(B, S, H, D, dtype=bf16) for _ in range(3))
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         n_bytes = 4 * B * S * H * D * 2
@@ -350,7 +371,7 @@ def phase_kernels(torch, fa, rn, ref, hw):
                      max_abs_err=errs["flash_attention"][
                          ("bfloat16", 1, 12, 256, 64, True)],
                      bound_ms=bound * 1e3, bound_by=by, **t))
-    for d, nrows_list in ((1024, (320, 4)), (768, (256, 4))):
+    for d, nrows_list in ((1024, (2048, 320, 4)), (768, (2048, 256, 4))):
         for nrows in nrows_list:
             x = randn(nrows, d, dtype=bf16)
             s = (randn(d, dtype=torch.float32) * 0.1 + 1.0).to(bf16)
@@ -390,7 +411,8 @@ def phase_mamba_kernels(torch, rn, ssd, ref, hw):
     # the test sweep, then mamba2-370m's decode (4 slots) and prefill rows
     gated_cases = [(dtype, shape) for dtype in (torch.float32, bf16)
                    for shape in ((4, 16, 128), (33, 256))]
-    gated_cases += [(bf16, (4, 2048)), (bf16, (320, 2048))]
+    gated_cases += [(bf16, (4, 2048)), (bf16, (320, 2048)),
+                    (bf16, (2048, 2048))]     # a mamba2-370m train step
     for dtype, shape in gated_cases:
         dn = str(dtype).split(".")[1]
         y, z = randn(*shape, dtype=dtype), randn(*shape, dtype=dtype)
@@ -455,7 +477,8 @@ def phase_mamba_kernels(torch, rn, ssd, ref, hw):
             ref.ssd_intra_chunk_ref(x, dt_, A, B, C), "bfloat16")
 
     rows = []
-    for nrows in (320, 4):      # a 320-token prefill; a decode step's 4 slots
+    # a train step's 8 x 256 rows; a 320-token prefill; a decode step's slots
+    for nrows in (2048, 320, 4):
         y, z = randn(nrows, 2048, dtype=bf16), randn(nrows, 2048, dtype=bf16)
         s = (randn(2048) * 0.1 + 1.0).to(bf16)
         n_bytes = 3 * nrows * 2048 * 2 + 2048 * 2
@@ -470,21 +493,40 @@ def phase_mamba_kernels(torch, rn, ssd, ref, hw):
                      replaces="src/repro/kernels/rmsnorm.py:26",
                      max_abs_err=errs[("gated", "bfloat16", (4, 2048))],
                      bound_ms=bound * 1e3, bound_by=by, **t))
+
+    def ssd_bound(N, l, h, p, g, n):
+        n_bytes = (N * l * h * p * 2 + N * l * h * 4 + h * 4
+                   + 2 * N * l * g * n * 2
+                   + N * l * h * p * 4)       # x, dt, A, B, C in; fp32 y out
+        pairs = l * (l + 1) // 2              # causal (i, j <= i) pairs
+        flops = N * (g * pairs * 2 * n         # C_i . B_j per group
+                     + h * pairs * (2 * p + 3)  # decay, weight, W @ xdt
+                     + l * h * (p + 2))        # x * dt, dt * A, cumsum
+        return n_bytes, flops, *hw.bound_s(n_bytes, flops, bf16)
+
+    def ssd_timed(x, dt_, A, B, C, label):
+        ssd.ssd_intra_chunk(x, dt_, A, B, C, out_dtype=torch.float32)
+        return timed(f"{label}, {ssd_body(ssd)} (no library call)", dict(
+            ms=lambda: ssd.ssd_intra_chunk(x, dt_, A, B, C,
+                                           out_dtype=torch.float32),
+            plain_ms=lambda: ref.ssd_intra_chunk_ref(
+                x, dt_, A, B, C, out_dtype=torch.float32)))
+
+    # a mamba2-370m train step: 8 sequences of one chunk of 256
+    case = (8, 256, 32, 64, 1, 128)
+    xs8 = ssd_inputs(*case, bf16)
+    compare(f"ssd_intra_chunk bf16 in, fp32 out, N,l,h,p,g,n={case} (a train "
+            f"step)", ssd.ssd_intra_chunk(*xs8, out_dtype=torch.float32),
+            ref.ssd_intra_chunk_ref(*xs8, out_dtype=torch.float32),
+            "float32", tol=SSD_TOL)
+    n_bytes, flops, bound, by = ssd_bound(*case)
+    ssd_timed(*xs8, "ssd_intra_chunk bf16 in, fp32 out, N8 l256 h32 p64 g1 "
+              "n128 (a train step)")
+    print(f"  bound {bound * 1e3:.6f} ms ({by}: {n_bytes} B, {flops} FLOP)")
     N, l, h, p, g, n = 2, 256, 32, 64, 1, 128
-    n_bytes = (N * l * h * p * 2 + N * l * h * 4 + h * 4 + 2 * N * l * g * n * 2
-               + N * l * h * p * 4)           # x, dt, A, B, C in; fp32 y out
-    pairs = l * (l + 1) // 2                  # causal (i, j <= i) pairs
-    flops = N * (g * pairs * 2 * n             # C_i . B_j per group
-                 + h * pairs * (2 * p + 3)     # decay, weight, W @ xdt
-                 + l * h * (p + 2))            # x * dt, dt * A, cumsum
-    bound, by = hw.bound_s(n_bytes, flops, bf16)
-    ssd.ssd_intra_chunk(x, dt_, A, B, C, out_dtype=torch.float32)
-    t = timed(f"ssd_intra_chunk bf16 in, fp32 out, N{N} l{l} h{h} p{p} g{g} "
-              f"n{n}, {ssd_body(ssd)} (no library call)", dict(
-                  ms=lambda: ssd.ssd_intra_chunk(x, dt_, A, B, C,
-                                                 out_dtype=torch.float32),
-                  plain_ms=lambda: ref.ssd_intra_chunk_ref(
-                      x, dt_, A, B, C, out_dtype=torch.float32)))
+    n_bytes, flops, bound, by = ssd_bound(N, l, h, p, g, n)
+    t = ssd_timed(x, dt_, A, B, C, f"ssd_intra_chunk bf16 in, fp32 out, N{N} "
+                  f"l{l} h{h} p{p} g{g} n{n}")
     print(f"  bound {bound * 1e3:.6f} ms ({by}: {n_bytes} B, {flops} FLOP)")
     # The serve's prompts (128, 320) are padded to whole chunks, which
     # copies x, B and C: the timing above is that contiguous layout.  A
@@ -875,12 +917,13 @@ def phase_grads(torch, ops, ref, counters):
                         dn, tol=tol)
 
 
-def train_profile(torch, trainer, state, step, perf):
-    """Phase 12: one train step of ``trainer`` under torch.profiler: its
-    device time split into flash attention, RMSNorm, the GEMMs outside the
-    plain-version backwards, the plain-version backward of attention (the
-    device time under the autograd engine's FlashAttentionBSHDBackward
-    node) and of RMSNorm, and the rest; and the busy share."""
+def train_profile(torch, trainer, state, step, perf, kernels, backwards):
+    """Phases 12 and 15: one train step of ``trainer`` under torch.profiler:
+    its device time split into the hand-written forward kernels
+    ``kernels`` (names of ``KERNEL_NAMES``; their recompute under remat
+    included), the GEMMs outside the backwards of ``backwards``, the device
+    time under each autograd node of ``backwards`` (label -> node name),
+    and the rest; and the busy share."""
     from torch.profiler import ProfilerActivity, profile
 
     batch = trainer._batch(step)
@@ -906,25 +949,20 @@ def train_profile(torch, trainer, state, step, perf):
 
     gemm = re.compile(r"gemm|gemv|nvjet|xmma|cutlass|cublas", re.I)
     backward = {}
-    for label, node in (("attention", "FlashAttentionBSHDBackward"),
-                        ("RMSNorm", "RMSNormBackward")):
-        kernels = []
+    for label, node in backwards.items():
+        found = []
         for e in prof.events():
             if e.name.startswith("autograd::engine::evaluate_function") \
                     and e.name.endswith(node):
-                kernels += subtree(e)
-        backward[label] = kernels
+                found += subtree(e)
+        backward[label] = found
     every = [(name, us) for name, us, _, _ in acts]
-    parts = {
-        "flash attention (forward kernel)": named(
-            KERNEL_NAMES["flash_attention"], every),
-        "RMSNorm (forward kernel)": named(KERNEL_NAMES["rmsnorm"], every),
-        "GEMMs outside the plain backwards": named(gemm, every) - sum(
-            named(gemm, k) for k in backward.values()),
-    }
-    for label, kernels in backward.items():
-        parts[f"{label}'s plain-version backward"] = sum(
-            us for _, us in kernels) / 1e3
+    parts = {f"{label} (forward kernel)": named(KERNEL_NAMES[label], every)
+             for label in kernels}
+    parts["GEMMs outside those backwards"] = named(gemm, every) - sum(
+        named(gemm, k) for k in backward.values())
+    for label, found in backward.items():
+        parts[label] = sum(us for _, us in found) / 1e3
     parts["the rest"] = total - sum(parts.values())
     print(f"device activity {total:.3f} ms within {span:.3f} ms from the "
           f"first device activity to the last: {100 * total / span:.2f}% "
@@ -939,15 +977,32 @@ def train_profile(torch, trainer, state, step, perf):
         print(f"  {us / 1e3:9.3f} ms  {key[:100]}")
 
 
-def phase_train(torch, np, counters, registry, perf, smi):
-    """Phases 11 and 12: ``launch.train.main`` trains llsc-100m at full
-    width and depth in bfloat16 with float32 masters, 22 AdamW steps of 8 x
-    256 tokens with ``flash_kernel``, the counters set to 0 just before.
-    Every loss is finite; each step launches exactly 12 flash and 25
-    RMSNorm kernels (the backward recomputes through the plain versions)
-    and no gated norm or SSD kernel; the registry holds the job's duty in
-    (0, 1].  Steps 3-22 give the median step time and tokens/s (the first
-    2 are warm-up)."""
+def step_launches(cfg):
+    """The hand-written kernels' launches in one train step of ``cfg`` (with
+    ``flash_kernel``): each block's forward kernels run once in the
+    forward and, under a ``cfg.remat`` other than "none", once more in the
+    backward's recompute of its period; the final norm lies outside the
+    periods and runs once.  The backwards are the plain versions'."""
+    runs = 1 if cfg.remat == "none" else 2
+    n = cfg.n_layers
+    norms = 2 if cfg.d_ff else 1        # ln1, and ln2 where there is an FFN
+    if cfg.family == "ssm":
+        return {"flash_attention": 0, "rmsnorm": runs * norms * n + 1,
+                "gated_rmsnorm": runs * n, "ssd_intra_chunk": runs * n}
+    return {"flash_attention": runs * n, "rmsnorm": runs * norms * n + 1,
+            "gated_rmsnorm": 0, "ssd_intra_chunk": 0}
+
+
+def phase_train(torch, np, counters, registry, perf, smi, arch, flags=(),
+                *, phase):
+    """Phases 11-12 (llsc-100m) and 14-15 (mamba2-370m):
+    ``launch.train.main`` trains ``arch`` at full width and depth in
+    bfloat16 with float32 masters under the config's ``remat`` ("full"),
+    22 AdamW steps of 8 x 256 tokens, the counters set to 0 just before.
+    Every loss is finite; each step launches exactly ``step_launches``;
+    the registry holds the job's duty in (0, 1].  Steps 3-22 give the
+    median step time and tokens/s (the first 2 are warm-up).  Then one step
+    under the profiler.  Returns the launch counts."""
     from repro_torch.launch import train as launch_train
     from repro_torch.train import trainer as trainer_mod
 
@@ -958,8 +1013,8 @@ def phase_train(torch, np, counters, registry, perf, smi):
         """The launcher's Trainer, kept with its result for the
         timings and the profile."""
 
-        def run(self):
-            self.out = super().run()
+        def run(self, resume=True):
+            self.out = super().run(resume)
             made.append(self)
             return self.out
 
@@ -970,8 +1025,8 @@ def phase_train(torch, np, counters, registry, perf, smi):
         for mod, attr in counters.values():
             setattr(mod, attr, 0)
         rc = launch_train.main([
-            "--arch", "llsc-100m", "--steps", str(steps), "--batch",
-            str(batch), "--seq", str(seq), "--flags", "flash_kernel"])
+            "--arch", arch, "--steps", str(steps), "--batch", str(batch),
+            "--seq", str(seq), *flags])
         torch.cuda.synchronize()
         counts = {name: getattr(mod, attr) for name, (mod, attr) in
                   counters.items()}
@@ -983,11 +1038,10 @@ def phase_train(torch, np, counters, registry, perf, smi):
     losses = trainer.out["losses"]
     check(len(losses) == steps and all(np.isfinite(losses)),
           f"losses {losses}")
-    expect = {"flash_attention": cfg.n_layers * steps,
-              "rmsnorm": (2 * cfg.n_layers + 1) * steps,
-              "gated_rmsnorm": 0, "ssd_intra_chunk": 0}
-    print(f"launches on the main path: {counts} (expected {expect}: 12 "
-          f"flash and 25 RMSNorm a step)")
+    per_step = step_launches(cfg)
+    expect = {k: n * steps for k, n in per_step.items()}
+    print(f"launches on the main path: {counts} (expected {expect}: "
+          f"{per_step} a step under remat={cfg.remat!r})")
     check(counts == expect, f"launch counts {counts} != {expect}")
     pub = registry.entries()[f"train:{cfg.name}"]
     check(0 < pub.duty_cycle <= 1, f"published duty {pub.duty_cycle}")
@@ -995,7 +1049,7 @@ def phase_train(torch, np, counters, registry, perf, smi):
     med = float(np.median(times))
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
     print(f"losses {losses[0]:.4f} -> {losses[-1]:.4f}, all finite")
-    print(f"[{smi}] train llsc-100m bf16, {batch} x {seq} tokens a step: "
+    print(f"[{smi}] train {arch} bf16, {batch} x {seq} tokens a step: "
           f"median step {med * 1e3:.3f} ms over steps 3-{steps} (min "
           f"{times.min() * 1e3:.3f}, max {times.max() * 1e3:.3f}; first two "
           f"{trainer.history[0]['time_s'] * 1e3:.1f} and "
@@ -1003,8 +1057,29 @@ def phase_train(torch, np, counters, registry, perf, smi):
           f"{batch * seq / med:.1f} training tokens/s; published duty "
           f"{pub.duty_cycle:.6f} of the H100 bf16 peak (last step); peak "
           f"memory allocated {peak_mb:.1f} MiB")
-    print(f"=== 12. one train step under torch.profiler [{smi}] ===")
-    train_profile(torch, trainer, trainer.out["state"], steps, perf)
+    print(f"=== {phase + 1}. one {arch} train step under torch.profiler "
+          f"[{smi}] ===")
+    if cfg.family == "ssm":
+        kernels = ("rmsnorm", "gated_rmsnorm", "ssd_intra_chunk")
+        routes = {"ssd_intra_chunk": "SSDIntraChunk",
+                  "gated_rmsnorm": "GatedRMSNorm", "rmsnorm": "RMSNorm"}
+    else:
+        kernels = ("flash_attention", "rmsnorm")
+        routes = {"flash_attention": "FlashAttentionBSHD",
+                  "rmsnorm": "RMSNorm"}
+    backwards = {f"{k}'s plain-version backward": f"{fn}Backward"
+                 for k, fn in routes.items()}
+    # the backward of each layer's view leaf[i] of a stacked leaf: a zero
+    # tensor of the whole stack with the layer's slice filled in, added
+    # into the stack's gradient
+    backwards["the stacked leaves' select backward"] = "SelectBackward0"
+    train_profile(torch, trainer, trainer.out["state"], steps, perf, kernels,
+                  backwards)
+    # Recorded.run's closure holds ``made``, which holds the trainer: break
+    # the cycle, so that the train state is freed on return and not by a
+    # later garbage collection in another phase's memory figures
+    made.clear()
+    return counts
 
 
 def flat(tree, path=""):
@@ -1020,6 +1095,15 @@ def grad_gaps(got, want):
     of float32 CPU tensors."""
     return {k: (float(w.abs().max()), float((got[k] - w).abs().max()))
             for k, w in want.items()}
+
+
+def gap_share(peak, gap):
+    """A leaf's gradient gap over its largest reference gradient.  A leaf
+    the loss does not read (ln2 of a block without an FFN) has a zero
+    gradient on both sides, or an infinite share."""
+    if peak > 0:
+        return gap / peak
+    return 0.0 if gap == 0 else float("inf")
 
 
 def update_gaps(got, want, g_want, lrs):
@@ -1055,20 +1139,20 @@ def update_gaps(got, want, g_want, lrs):
     return tight, loose, held / total
 
 
-def train_card_vs_cpu(torch, perf):
-    """Phase 13: llsc-100m at full width and depth in float32 (TF32 off),
-    the same float32 masters from one seed on the card and on the CPU, the
-    same batch (1 x 256 tokens) for 2 ``make_train_step`` steps, with
-    ``flash_kernel``.  Losses within 1e-4 relative; step-1 gradients within
-    5e-3 absolute (the reference's gradient tolerance) and each leaf's
-    within GRAD_RTOL of its largest; parameters after 2 steps within
-    ``update_gaps``' two bounds."""
-    from repro_torch.configs import get_config
+def train_card_vs_cpu(torch, perf, cfg):
+    """Phases 13 and 16: ``cfg`` at full width in float32 (TF32 off), under
+    its ``remat`` ("full"), the same float32 masters from one seed on the
+    card and on the CPU, the same batch (1 x 256 tokens) for 2
+    ``make_train_step`` steps, with ``flash_kernel``.  Losses within 1e-4
+    relative; step-1 gradients within 5e-3 absolute (the reference's
+    gradient tolerance) and each leaf's within GRAD_RTOL of its largest;
+    parameters after 2 steps within ``update_gaps``' two bounds."""
     from repro_torch.train import optimizer as opt
     from repro_torch.train import train_step as ts
     from repro_torch.train.data import DataConfig, SyntheticLM
 
-    cfg = dataclasses.replace(get_config("llsc-100m"), dtype="float32")
+    print(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"remat {cfg.remat!r}")
     ocfg = ts.default_opt_cfg(cfg, total_steps=2)
     batch = SyntheticLM(DataConfig(cfg.vocab_size, 256, 1, 0)).batch(0)
     masters = ts.init_train_state(cfg, torch.Generator().manual_seed(0),
@@ -1076,6 +1160,7 @@ def train_card_vs_cpu(torch, perf):
     result = {}
     with perf.perf_flags(perf.PerfFlags(flash_kernel=True)):
         for dev in ("cpu", "cuda"):
+            t0 = time.perf_counter()
             params = _to(masters, dev)
             b = {k: v.to(dev) for k, v in batch.items()}
             _, grads = ts.loss_and_grads(params, cfg, b)
@@ -1088,20 +1173,22 @@ def train_card_vs_cpu(torch, perf):
                 lrs.append(met["lr"])
             result[dev] = (flat(_to(grads, "cpu")), losses, lrs,
                            flat(_to(state.params, "cpu")))
+            print(f"  {dev}: gradients and 2 steps in "
+                  f"{time.perf_counter() - t0:.1f} s")
     (g_cpu, l_cpu, lrs, p_cpu), (g_card, l_card, _, p_card) = \
         result["cpu"], result["cuda"]
 
     loss_rel = max(abs(x - y) / abs(y) for x, y in zip(l_card, l_cpu))
     gaps = grad_gaps(g_card, g_cpu)
     g_err = max(gap for _, gap in gaps.values())
-    g_rel = max(gap / peak for peak, gap in gaps.values())
+    g_rel = max(gap_share(peak, gap) for peak, gap in gaps.values())
     tight, loose, held = update_gaps(p_card, p_cpu, g_cpu, lrs)
     print(f"  losses card {l_card}, CPU {l_cpu}: worst relative "
           f"{loss_rel:.3e} (tol 1e-4)")
     print("  step-1 gradients by leaf: max |CPU grad|, max |card - CPU|, "
           "their ratio")
     for k, (peak, gap) in gaps.items():
-        print(f"    {k:36s} {peak:.4e} {gap:.4e} {gap / peak:.3e}")
+        print(f"    {k:36s} {peak:.4e} {gap:.4e} {gap_share(peak, gap):.3e}")
     print(f"  step-1 gradients: worst |card - CPU| {g_err:.3e} (tol 5e-3), "
           f"worst over leaves of |card - CPU| / max |CPU grad| {g_rel:.3e} "
           f"(tol {GRAD_RTOL:g})")
@@ -1116,6 +1203,174 @@ def train_card_vs_cpu(torch, perf):
           "card and CPU")
     check(tight <= 1 and loose <= 1, "parameters differ between card and "
           "CPU")
+
+
+def phase_remat(torch, perf, counters, smi):
+    """Phase 17: one llsc-100m forward and backward (``loss_and_grads``) at
+    full width and depth in bfloat16 from the same float32 masters and
+    batch (8 x 256 tokens, ``flash_kernel``) under remat "none", "full" and
+    "dots", each twice (none, full, dots, dots, full, none).  The loss is
+    the same (the forward runs the same kernels on the same inputs);
+    gradients agree with "none"'s within phase 13's bounds (5e-3, and each
+    leaf's within GRAD_RTOL of its largest); launches are exactly
+    ``step_launches``; peak memory under "full" is below "none"'s."""
+    from repro_torch.configs import get_config
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.data import DataConfig, SyntheticLM
+
+    base = get_config("llsc-100m")
+    masters = ts.init_train_state(base, torch.Generator().manual_seed(0),
+                                  ts.default_opt_cfg(base),
+                                  device="cuda").params
+    batch = SyntheticLM(DataConfig(base.vocab_size, 256, 8, 0)).batch(
+        0, "cuda")
+    runs = {}
+    with perf.perf_flags(perf.PerfFlags(flash_kernel=True)):
+        for remat in ("none", "full", "dots", "dots", "full", "none"):
+            cfg = dataclasses.replace(base, remat=remat)
+            for mod, attr in counters.values():
+                setattr(mod, attr, 0)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated() / 2 ** 20
+            t0 = time.perf_counter()
+            loss, grads = ts.loss_and_grads(masters, cfg, batch)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            peak = torch.cuda.max_memory_allocated() / 2 ** 20
+            counts = {name: getattr(mod, attr) for name, (mod, attr) in
+                      counters.items()}
+            check(counts == step_launches(cfg), f"remat {remat}: launches "
+                  f"{counts} != {step_launches(cfg)}")
+            if remat in runs:
+                runs[remat]["ms"].append(ms)
+                continue
+            runs[remat] = {"loss": float(loss), "ms": [ms], "peak": peak,
+                           "before": before, "launches": counts,
+                           "grads": flat(_to(grads, "cpu"))}
+            del grads
+    for remat, r in runs.items():
+        print(f"[{smi}] remat {remat!r}: loss {r['loss']!r}, forward and "
+              f"backward {r['ms'][0]:.3f} / {r['ms'][1]:.3f} ms, peak memory "
+              f"allocated {r['peak']:.1f} MiB ({r['before']:.1f} MiB "
+              f"allocated before it), launches {r['launches']}")
+    none = runs["none"]
+    for remat in ("full", "dots"):
+        gaps = grad_gaps(runs[remat]["grads"], none["grads"])
+        g_err = max(gap for _, gap in gaps.values())
+        g_rel = max(gap_share(peak, gap) for peak, gap in gaps.values())
+        same = sum(gap == 0 for _, gap in gaps.values())
+        print(f"  {remat!r} against 'none': worst gradient gap {g_err:.3e} "
+              f"(tol 5e-3), {g_rel:.3e} of its leaf's largest (tol "
+              f"{GRAD_RTOL:g}); {same} of {len(gaps)} leaves bit for bit")
+        check(runs[remat]["loss"] == none["loss"], f"remat {remat}: the "
+              "loss differs from 'none''s")
+        check(g_err <= 5e-3 and g_rel <= GRAD_RTOL, f"remat {remat}: the "
+              "gradients differ from 'none''s")
+    check(runs["full"]["peak"] < none["peak"], "peak memory under remat "
+          "'full' is not below 'none''s")
+
+
+def phase_checkpoint(torch, np, smi):
+    """Phase 18: llsc-100m at full width and depth, bf16, 8 x 256 tokens,
+    ``Trainer`` with ``ckpt_every=2`` under ``CrashInjector(5)``: the run
+    raises at step 5 with checkpoints of steps 2 and 4 on disk;
+    ``latest_step`` is 4; the state restored from it equals the one saved
+    bit for bit; a resume starts at step 4 and ends at an uninterrupted
+    run's final loss within 1e-4 relative; an async save of the final state
+    writes the same files as a blocking one.  Prints the save and restore
+    times and the bytes written.  The files go to build/ and are removed."""
+    import json
+    import shutil
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.fault import CrashInjector
+    from repro_torch.train import checkpoint as ck
+    from repro_torch.train.train_step import init_train_state_shape
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    root = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    cfg = get_config("llsc-100m")
+
+    def tcfg(ckpt_dir=None):
+        return TrainerConfig(steps=8, batch_size=8, seq_len=256,
+                             ckpt_dir=ckpt_dir and str(ckpt_dir),
+                             ckpt_every=2, log_every=0, monitor_every=0,
+                             device="cuda")
+
+    saves, saved = [], {}
+    blocking_save = ck.save_checkpoint
+
+    def recorded(ckpt_dir, step, state, extra=None, keep=3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        blocking_save(ckpt_dir, step, state, extra, keep)
+        saves.append((step, time.perf_counter() - t0))
+        if step == 4:
+            saved[step] = ck._flatten(state)
+
+    try:
+        whole = Trainer(cfg, tcfg()).run(resume=False)
+        ck.save_checkpoint = recorded
+        crashed = Trainer(cfg, tcfg(root / "run"), crash=CrashInjector(5))
+        msg = raises(lambda: crashed.run(resume=False), RuntimeError,
+                     "injected node failure at step 5")
+        print(f"  crashed: {msg}; checkpoints "
+              f"{ck.list_checkpoints(str(root / 'run'))}")
+        check(ck.latest_step(str(root / "run")) == 4, "latest_step after "
+              "the crash is not 4")
+        template = init_train_state_shape(cfg, crashed.opt_cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, meta = ck.restore_checkpoint(str(root / "run"), 4, template,
+                                            device="cuda")
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        got = ck._flatten(state)
+        check(got.keys() == saved[4].keys() and all(
+            got[k].dtype == v.dtype and np.array_equal(got[k], v)
+            for k, v in saved[4].items()), "the restored state differs from "
+            "the saved one")
+        resumed = Trainer(cfg, tcfg(root / "run")).run(resume=True)
+    finally:
+        ck.save_checkpoint = blocking_save
+    rel = abs(resumed["final_loss"] - whole["final_loss"]) / abs(
+        whole["final_loss"])
+    print(f"  resumed at step {resumed['start_step']}: final loss "
+          f"{resumed['final_loss']!r}, uninterrupted {whole['final_loss']!r} "
+          f"(relative {rel:.3e}, tol 1e-4)")
+    check(resumed["start_step"] == 4, "the resume did not start at step 4")
+    check(rel <= 1e-4, "the resumed run's final loss differs")
+
+    final = resumed["state"]
+    t0 = time.perf_counter()
+    ck.save_checkpoint_async(str(root / "async"), 8, final)
+    returned_s = time.perf_counter() - t0
+    ck.wait_pending_checkpoints()
+    async_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ck.save_checkpoint(str(root / "sync"), 8, final)
+    sync_s = time.perf_counter() - t0
+    files = {}
+    for kind in ("async", "sync"):
+        path = root / kind / "step-000000008"
+        with np.load(path / "arrays.npz") as zf:
+            arrays = {k: zf[k] for k in zf.files}
+        files[kind] = (arrays, json.loads((path / "meta.json").read_text()))
+    (a, a_meta), (b, b_meta) = files["async"], files["sync"]
+    check(a_meta == b_meta and a.keys() == b.keys() and all(
+        a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]) for k in b),
+        "the async save wrote other files than the blocking one")
+    n_bytes = sum(p.stat().st_size
+                  for p in (root / "sync" / "step-000000008").iterdir())
+    print(f"[{smi}] checkpoint of the llsc-100m train state ({len(b)} "
+          f"arrays, {n_bytes} bytes written): blocking saves "
+          + ", ".join(f"step {s} {t:.3f} s" for s, t in saves)
+          + f", final {sync_s:.3f} s; restore {restore_s:.3f} s; async save "
+          f"returned in {returned_s * 1e3:.1f} ms, written in {async_s:.3f} "
+          f"s; async and blocking files equal")
+    shutil.rmtree(root, ignore_errors=True)
 
 
 def main() -> int:
@@ -1194,7 +1449,7 @@ def main() -> int:
               "rmsnorm": (2 * cfg.n_layers + 1) * (n_pre + n_dec),
               "gated_rmsnorm": 0, "ssd_intra_chunk": 0}
     report_serve(torch, np, eng, stats, counts, expect, cfg, registry)
-    launches = {k: counts[k] for k in ("flash_attention", "rmsnorm")}
+    serve_llsc = counts
     llsc_wall = stats["wall_s"]
 
     print("=== 5. card vs CPU, llsc-100m full width, float32 ===")
@@ -1222,8 +1477,7 @@ def main() -> int:
               "gated_rmsnorm": cfg.n_layers * (n_pre + n_dec),
               "ssd_intra_chunk": cfg.n_layers * n_pre}
     report_serve(torch, np, eng, stats, counts, expect, cfg, registry)
-    launches.update({k: counts[k] for k in ("gated_rmsnorm",
-                                            "ssd_intra_chunk")})
+    serve_mamba = counts
     mamba_wall = stats["wall_s"]
 
     print("=== 8. card vs CPU, mamba2-370m full width, float32 ===")
@@ -1240,15 +1494,42 @@ def main() -> int:
     phase_grads(torch, ops, ref, counters)
 
     print(f"=== 11. train llsc-100m, full width and depth, bf16, "
-          f"flash_kernel, through launch.train [{smi}] ===")
-    phase_train(torch, np, counters, registry, perf, smi)
+          f"flash_kernel, remat 'full', through launch.train [{smi}] ===")
+    by_path = {"serve llsc-100m": dict(serve_llsc),
+               "serve mamba2-370m": dict(serve_mamba)}
+    by_path["train llsc-100m"] = phase_train(
+        torch, np, counters, registry, perf, smi, "llsc-100m",
+        ("--flags", "flash_kernel"), phase=11)
 
     print("=== 13. card vs CPU, llsc-100m training, full width, float32 ===")
-    train_card_vs_cpu(torch, perf)
+    train_card_vs_cpu(torch, perf, dataclasses.replace(
+        get_config("llsc-100m"), dtype="float32"))
 
-    print(f"=== 14. summary (whole run {time.perf_counter() - t_all:.1f} s) ===")
+    print(f"=== 14. train mamba2-370m, full width and depth, bf16, remat "
+          f"'full', through launch.train [{smi}] ===")
+    by_path["train mamba2-370m"] = phase_train(
+        torch, np, counters, registry, perf, smi, "mamba2-370m", phase=14)
+
+    print("=== 16. card vs CPU, mamba2-370m training, full width, 4 of 48 "
+          "layers, float32 ===")
+    train_card_vs_cpu(torch, perf, dataclasses.replace(
+        get_config("mamba2-370m"), dtype="float32", n_layers=4))
+
+    print(f"=== 17. remat 'none', 'full' and 'dots': one llsc-100m forward "
+          f"and backward, full width, bf16 [{smi}] ===")
+    phase_remat(torch, perf, counters, smi)
+
+    print(f"=== 18. checkpoint, crash and resume on the card, llsc-100m "
+          f"[{smi}] ===")
+    phase_checkpoint(torch, np, smi)
+
+    print(f"=== 19. summary (whole run {time.perf_counter() - t_all:.1f} s) ===")
+    for path, counts in by_path.items():
+        print(f"launches, {path}: {counts}")
     for row in rows:
-        row["launches"] = launches[row["name"]]
+        row["launches"] = sum(c[row["name"]] for c in by_path.values())
+        check(row["launches"] > 0, f"{row['name']} never launched on a main "
+              "path")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in rows]}))

@@ -1,6 +1,6 @@
 """Overloading (NPPN) controller — the port's copy of
 ``repro.core.overload`` (with ``recommend_nppn`` from
-``repro.insights.rules``).
+``repro.insights.rules``), and its analytic packing model.
 
 The paper's §V-B policy: raise the tasks per GPU 1 -> 2 -> 4 -> 8 while the
 projected duty cycle and memory stay under their caps; back off when the
@@ -102,3 +102,16 @@ class OverloadController:
         if best < current_nppn:
             return OverloadDecision(best, "memory or load headroom shrank")
         return OverloadDecision(level, "at recommended level")
+
+
+def packed_throughput_model(per_task_duty: float, nppn: int,
+                            interference: float = 0.03) -> float:
+    """Analytic throughput multiple for NPPN tasks sharing one device.
+
+    Tasks time-share: aggregate duty saturates at 1.0; each co-resident
+    task adds a small interference tax (context switching / memory
+    traffic).  The measured counterpart is
+    ``repro_torch.examples.overloading_throughput``.
+    """
+    raw = min(1.0, per_task_duty * nppn)
+    return raw * (1.0 - interference * (nppn - 1))

@@ -1,9 +1,10 @@
 """Perf-iteration toggles (copy of ``repro.models.perf_flags``).
 
 The field set is the reference's, so ``PerfFlags.parse`` accepts the same
-names; the port acts on ``flash_kernel`` only, which routes prefill
-attention through the CUDA flash kernel.  Defaults are all off, as in the
-reference.
+names; the port acts on ``flash_kernel``, which routes prefill attention
+through the CUDA flash kernel, and ``remat_dots``, which makes a
+``cfg.remat`` other than ``"none"`` act as ``"dots"``.  Defaults are all
+off, as in the reference.
 """
 from __future__ import annotations
 
@@ -26,6 +27,8 @@ class PerfFlags:
     # Route global causal prefill attention through the flash kernel
     # (kernels/csrc/flash_attention.cu on a CUDA tensor).
     flash_kernel: bool = False
+    # Rematerialize a train step's blocks keeping only the matrix products
+    # (models/transformer.py::_remat) unless cfg.remat is "none".
     remat_dots: bool = False
 
     @classmethod

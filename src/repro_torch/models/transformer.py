@@ -20,16 +20,28 @@ attention layer, and ``conv`` [B,K-1,C] in the model dtype and ``ssd``
 The reference scans over the period axis; here a Python loop takes layer
 ``i`` as a view ``leaf[i]`` of each stacked leaf.  Decode writes the cache
 in place and returns the same tree.
+
+When autograd records (a train step), each period of the stacked blocks is
+rematerialized as ``cfg.remat`` says, as the reference's ``_remat``: its
+activations are recomputed in the backward, kernels included, so a train
+step under ``"full"`` or ``"dots"`` launches every block-level forward
+kernel twice.  The remainder layers, the final norm and the serve paths
+are never rematerialized.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import Leaf, embed, mlp, rmsnorm
+from repro_torch.models.perf_flags import current as _perf
+from repro_torch.models.perf_flags import perf_flags
 
 F32 = torch.float32
 
@@ -208,26 +220,83 @@ def input_embeddings(params, cfg, tokens):
     return embed(params["embed"], tokens, cfg.embed_scale)
 
 
+# The outputs that ``"dots"`` keeps: the matrix products', as
+# ``jax.checkpoint_policies.checkpoint_dots`` keeps dot_general outputs.
+# Everything else, the hand-written kernels' outputs included, is
+# recomputed.
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+         torch.ops.aten.bmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, cfg):
+    """``fn`` rematerialized as ``cfg.remat`` says (the reference's
+    ``_remat``): ``"none"`` as it is; ``"full"`` recomputes everything in
+    the backward; ``"dots"``, or the ``remat_dots`` PerfFlag, recomputes
+    everything but the matrix products.  No block draws random numbers, so
+    the checkpoint's RNG stash is moot and stays at its default."""
+    if cfg.remat == "none":
+        return fn
+    flags = _perf()
+    kw = {}
+    if cfg.remat == "dots" or flags.remat_dots:
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)
+
+    def under_flags(*args):
+        # The recompute runs in the backward, on the autograd engine's
+        # device thread for CUDA tensors, where this thread's PerfFlags are
+        # not set: it must take the forward's routes (flash or not).
+        with perf_flags(flags):
+            return fn(*args)
+
+    return functools.partial(checkpoint, under_flags, use_reentrant=False,
+                             **kw)
+
+
+def _records(params) -> bool:
+    """Whether autograd records a graph through ``params``."""
+    return torch.is_grad_enabled() and any(
+        t.requires_grad for t in leaves(params))
+
+
 def forward_hidden(params, cfg, tokens, *, want_cache=False):
     """tokens [B,S] -> (hidden [B,S,d] after the final norm, caches or
-    None)."""
+    None).  Each period of the stacked blocks goes through ``_remat`` when
+    autograd records."""
     check_supported(cfg)
     x = input_embeddings(params, cfg, tokens)
     positions = torch.arange(x.shape[1], device=x.device)
-    stacked = {str(p): [] for p in range(cfg.period)}
-    rem = {}
-    for bp, key, i, kind in _blocks(params, cfg):
-        x, c = apply_block_full(bp, x, cfg, kind, positions)
+
+    def period_fn(x, pparams):
+        caches = {}
+        for p in range(cfg.period):
+            x, caches[str(p)] = apply_block_full(
+                pparams[str(p)], x, cfg, cfg.layer_pattern[p], positions)
+        return x, caches
+
+    if _records(params):
+        period_fn = _remat(period_fn, cfg)
+    stacked = []
+    for i in range(cfg.n_periods):
+        x, c = period_fn(x, {str(p): _layer(params["blocks"][str(p)], i)
+                             for p in range(cfg.period)})
         if want_cache:
-            if i is None:
-                rem[key] = c
-            else:
-                stacked[key].append(c)
+            stacked.append(c)
+    rem = {}
+    for r in range(cfg.n_remainder):
+        x, rem[str(r)] = apply_block_full(params["rem"][str(r)], x, cfg,
+                                          cfg.layer_pattern[r], positions)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if not want_cache:
         return x, None
-    blocks = {key: {n: torch.stack([c[n] for c in cs]) for n in cs[0]}
-              for key, cs in stacked.items() if cs}
+    blocks = {key: {n: torch.stack([c[key][n] for c in stacked])
+                    for n in stacked[0][key]}
+              for key in stacked[0]} if stacked else {}
     return x, {"blocks": blocks, "rem": rem}
 
 

@@ -1,5 +1,4 @@
-"""Training of the port (counterpart of ``repro.train``, without its
-checkpoints)."""
+"""Training of the port (counterpart of ``repro.train``)."""
 from repro_torch.train.data import DataConfig, SyntheticLM
 from repro_torch.train.optimizer import (AdamWConfig, AdamWState,
                                          adamw_update, init_opt_state)

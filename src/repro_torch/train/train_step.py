@@ -7,7 +7,8 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.models import model as model_lib
-from repro_torch.models.transformer import _tree_map, leaves
+from repro_torch.models.transformer import (_tree_map, leaf_dtype, leaves,
+                                            param_spec)
 from repro_torch.train.optimizer import (AdamWConfig, AdamWState,
                                          adamw_update, init_opt_state)
 
@@ -24,6 +25,16 @@ def init_train_state(cfg, generator: torch.Generator, opt_cfg: AdamWConfig,
     """float32 masters drawn from ``generator`` (a CPU generator) on
     ``device``, and zero moments."""
     params = model_lib.init_params(cfg, generator, device=device, dtype=F32)
+    return TrainState(params, init_opt_state(params, opt_cfg))
+
+
+def init_train_state_shape(cfg, opt_cfg: AdamWConfig) -> TrainState:
+    """The train state's structure, shapes and dtypes as tensors on the
+    ``meta`` device (the reference's ``init_train_state_shape``): the
+    template ``restore_checkpoint`` fills."""
+    params = _tree_map(
+        lambda leaf: torch.empty(leaf.shape, dtype=leaf_dtype(leaf, cfg, F32),
+                                 device="meta"), param_spec(cfg))
     return TrainState(params, init_opt_state(params, opt_cfg))
 
 

@@ -1,6 +1,6 @@
-"""Training loop with LLload self-reporting and a straggler hook — the
-"user job" side of the paper's pipeline (counterpart of
-``repro.train.trainer``, without its checkpoints).
+"""Training loop with LLload self-reporting, checkpoint/restart and a
+straggler hook — the "user job" side of the paper's pipeline (counterpart
+of ``repro.train.trainer``).
 
 Every ``monitor_every`` steps the trainer publishes its measured
 utilization (achieved model-FLOP/s over the device's peak, the paper's
@@ -8,6 +8,12 @@ utilization (achieved model-FLOP/s over the device's peak, the paper's
 card the peak is the H100's for the model's dtype and the memory is
 ``torch.cuda.max_memory_allocated`` over the card's; on the CPU there is no
 device figure, so both must be given.
+
+With a ``ckpt_dir`` the trainer saves every ``ckpt_every`` steps and at
+the end, and ``run(resume=True)`` starts from the newest complete
+checkpoint there.  Resuming needs nothing else: ``SyntheticLM.batch(step)``
+is random access, and the learning rate follows the restored
+``opt.step``.
 """
 from __future__ import annotations
 
@@ -19,13 +25,17 @@ from typing import Optional
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.launch.fault import StragglerDetector
+from repro_torch.launch.fault import (CrashInjector, StragglerDetector,
+                                      resume_latest)
 from repro_torch.models import model as model_lib
 from repro_torch.models.transformer import leaves
 from repro_torch.monitor import device_figures, publish_step_utilization
+from repro_torch.train import checkpoint as ckpt_lib
 from repro_torch.train.data import DataConfig, SyntheticLM
 from repro_torch.train.train_step import (TrainState, default_opt_cfg,
-                                          init_train_state, make_train_step)
+                                          init_train_state,
+                                          init_train_state_shape,
+                                          make_train_step)
 
 
 @dataclasses.dataclass
@@ -33,6 +43,9 @@ class TrainerConfig:
     steps: int = 100
     batch_size: int = 8
     seq_len: int = 128
+    ckpt_dir: Optional[str] = None
+    ckpt_every: int = 50
+    async_ckpt: bool = False      # overlap checkpoint I/O with training
     monitor_every: int = 1
     log_every: int = 10
     seed: int = 0
@@ -45,7 +58,8 @@ class TrainerConfig:
 
 
 class Trainer:
-    def __init__(self, cfg, tcfg: TrainerConfig):
+    def __init__(self, cfg, tcfg: TrainerConfig, *,
+                 crash: Optional[CrashInjector] = None):
         self.cfg = cfg
         self.tcfg = tcfg
         self.device = resolve_device(tcfg.device)
@@ -56,6 +70,7 @@ class Trainer:
         self.data = SyntheticLM(DataConfig(cfg.vocab_size, tcfg.seq_len,
                                            tcfg.batch_size, tcfg.seed))
         self.step_fn = make_train_step(cfg, self.opt_cfg)
+        self.crash = crash
         self.straggler = StragglerDetector()
         self.host = socket.gethostname()
         self.history: list = []
@@ -79,11 +94,20 @@ class Trainer:
                    for tree in (state.params, state.opt.m, state.opt.v)
                    for t in leaves(tree)) / 1e9
 
-    def run(self) -> dict:
+    def run(self, resume: bool = True) -> dict:
         tc = self.tcfg
-        state = self._init_state()
+        start_step = 0
+        state = None
+        if tc.ckpt_dir and resume:
+            state, start_step = resume_latest(
+                tc.ckpt_dir, init_train_state_shape(self.cfg, self.opt_cfg),
+                self.device)
+        if state is None:
+            state = self._init_state()
         losses = []
-        for step in range(tc.steps):
+        for step in range(start_step, tc.steps):
+            if self.crash is not None:
+                self.crash.maybe_crash(step)
             t0 = time.perf_counter()
             state, metrics = self.step_fn(state, self._batch(step))
             if self.device.type == "cuda":
@@ -104,5 +128,15 @@ class Trainer:
             if tc.log_every and step % tc.log_every == 0:
                 print(f"[train:{self.cfg.name}] step {step} "
                       f"loss {loss:.4f} ({dt * 1e3:.0f} ms)")
+            if tc.ckpt_dir and tc.ckpt_every and \
+                    (step + 1) % tc.ckpt_every == 0:
+                if tc.async_ckpt:
+                    ckpt_lib.save_checkpoint_async(tc.ckpt_dir, step + 1,
+                                                   state)
+                else:
+                    ckpt_lib.save_checkpoint(tc.ckpt_dir, step + 1, state)
+        if tc.ckpt_dir:
+            ckpt_lib.wait_pending_checkpoints()
+            ckpt_lib.save_checkpoint(tc.ckpt_dir, tc.steps, state)
         return {"final_loss": losses[-1] if losses else float("nan"),
-                "losses": losses, "state": state}
+                "losses": losses, "start_step": start_step, "state": state}

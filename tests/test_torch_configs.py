@@ -123,3 +123,10 @@ def test_overload_controller_copy(duties, nppn):
         ref.observe(jax_overload.DeviceObservation(d, 2.0, 80.0))
     a, b = mine.decide(nppn), ref.decide(nppn)
     assert (a.nppn, a.reason) == (b.nppn, b.reason)
+
+
+@pytest.mark.parametrize("duty,nppn", [(0.35, 1), (0.35, 2), (0.35, 4),
+                                       (0.35, 8), (0.05, 8), (1.0, 3)])
+def test_packed_throughput_model_copy(duty, nppn):
+    assert overload.packed_throughput_model(duty, nppn) == \
+        jax_overload.packed_throughput_model(duty, nppn)

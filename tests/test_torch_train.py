@@ -2,9 +2,12 @@
 the CPU: the chunked loss, the gradients of ``lm_loss`` with respect to
 the float32 masters (flash path on and off, float32 and bfloat16), one
 AdamW update and its schedule, the weight-decay mask, and three train
-steps, each on the same weights (the reference's float32 masters, carried
-across by the bridge) and the JAX package's own batches.  Then the port's
-own data generator, ``Trainer.run`` and ``launch.train`` on the CPU.
+steps (reduced llsc-100m and mamba2-370m, ``remat`` "none" and "full"),
+each on the same weights (the reference's float32 masters, carried across
+by the bridge) and the JAX package's own batches.  Then ``cfg.remat``
+against itself (gradients bit for bit, launch counts, the serve paths),
+the port's own data generator, ``Trainer.run`` and ``launch.train`` on
+the CPU.
 
 Tolerances, each the reference's own where it has one: 1e-5 for the loss
 in float32; 5e-3 absolute for float32 gradients
@@ -22,6 +25,7 @@ near 0 (where the two sides may take opposite signs).
 import dataclasses
 import importlib.util
 import math
+import threading
 from pathlib import Path
 
 import jax
@@ -34,6 +38,7 @@ torch = pytest.importorskip("torch")
 from repro.configs import get_config as jax_get_config  # noqa: E402
 from repro.configs import reduced_config as jax_reduced  # noqa: E402
 from repro.models import init_params as jax_init  # noqa: E402
+from repro.models import ssm as jax_ssm  # noqa: E402
 from repro.models import transformer as jax_tf  # noqa: E402
 from repro.models.perf_flags import PerfFlags as JaxFlags  # noqa: E402
 from repro.models.perf_flags import perf_flags as jax_perf_flags  # noqa: E402
@@ -43,8 +48,13 @@ from repro.train import optimizer as jax_opt  # noqa: E402
 from repro.train import train_step as jax_ts  # noqa: E402
 from repro_torch.bridge import from_jax_params  # noqa: E402
 from repro_torch.configs import reduced_config  # noqa: E402
+from repro_torch.kernels import _guard, ops, ref  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import rmsnorm as rn  # noqa: E402
+from repro_torch.kernels import ssd as ssd_kernel  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import model as model_lib  # noqa: E402
+from repro_torch.models import ssm as ssm_mod  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.models.perf_flags import PerfFlags, perf_flags  # noqa: E402
 from repro_torch.monitor import JobRegistry  # noqa: E402
@@ -66,11 +76,9 @@ def _chip_smoke():
     return mod
 
 
-def _configs(dtype="float32", **changes):
-    jcfg = dataclasses.replace(jax_reduced("llsc-100m"), dtype=dtype,
-                               **changes)
-    cfg = dataclasses.replace(reduced_config("llsc-100m"), dtype=dtype,
-                              **changes)
+def _configs(dtype="float32", arch="llsc-100m", **changes):
+    jcfg = dataclasses.replace(jax_reduced(arch), dtype=dtype, **changes)
+    cfg = dataclasses.replace(reduced_config(arch), dtype=dtype, **changes)
     return jcfg, cfg
 
 
@@ -224,6 +232,51 @@ def test_cast_params_keeps_one_dimensional_leaves_float32():
     assert {k: str(v.dtype).split(".")[1] for k, v in cast.items()} == jdt
 
 
+def test_cast_params_makes_mamba_float32_leaves_bf16_as_jax_does():
+    """Training casts every float32 leaf of more than one dimension, so the
+    stacked A_log, D and dt_bias [n_periods, H] enter the forward in bf16
+    on both sides (serving keeps them float32); every leaf's dtype equals
+    the reference's."""
+    jcfg, cfg = _configs("bfloat16", arch="mamba2-370m")
+    jstate, params = _masters(jcfg, cfg)
+    cast = _paths(ts.cast_params(params, "bfloat16"))
+    jcast = jax_ts.cast_params(jstate.params, "bfloat16")
+    jdt = {jax.tree_util.keystr(p): str(a.dtype) for p, a in
+           jax.tree_util.tree_flatten_with_path(jcast)[0]}
+    assert {k: str(v.dtype).split(".")[1] for k, v in cast.items()} == jdt
+    for name in ("A_log", "D", "dt_bias"):
+        assert cast[f"['blocks']['0']['mixer'][{name!r}]"].dtype == \
+            torch.bfloat16
+
+
+def test_mamba_bfloat16_scan_inputs_take_the_reference_dtypes(monkeypatch):
+    """bf16 compute on reduced mamba2-370m, the masters cast by
+    ``cast_params`` on both sides: the SSD scan takes dt (dt_raw + the bf16
+    dt_bias) in float32 and A = -exp(A_log) in bf16, as the reference's
+    ``mamba2_forward`` does, and the loss agrees within 2e-2.  Gradients
+    are held in float32 (``test_three_train_steps_match_jax``): in bf16
+    those of D and dt_bias are sums with cancellation, rounded at other
+    places by the two frameworks."""
+    seen = {"jax": [], "torch": []}
+
+    def spy(side, fn):
+        def wrapped(x, dt, A, *rest, **kw):
+            seen[side].append((str(dt.dtype).split(".")[-1],
+                               str(A.dtype).split(".")[-1]))
+            return fn(x, dt, A, *rest, **kw)
+        return wrapped
+
+    monkeypatch.setattr(jax_ssm, "ssd_chunked",
+                        spy("jax", jax_ssm.ssd_chunked))
+    monkeypatch.setattr(ssm_mod, "ssd_chunked",
+                        spy("torch", ssm_mod.ssd_chunked))
+    jcfg, cfg = _configs("bfloat16", arch="mamba2-370m")
+    jl, _, loss, _ = _grads(jcfg, cfg, False)
+    assert seen["torch"] and set(seen["torch"]) == set(seen["jax"]) == {
+        ("float32", "bfloat16")}
+    assert abs(loss - jl) <= 2e-2 * abs(jl)
+
+
 # --------------------------------------------------------------------------
 # (c) AdamW and its schedule; (d) the weight-decay mask
 # --------------------------------------------------------------------------
@@ -321,11 +374,13 @@ def test_decay_mask_matches_jax(arch):
 # --------------------------------------------------------------------------
 
 
-def test_three_train_steps_match_jax():
+@pytest.mark.parametrize("remat", ["none", "full"])
+@pytest.mark.parametrize("arch", ["llsc-100m", "mamba2-370m"])
+def test_three_train_steps_match_jax(arch, remat):
     """Losses within 1e-5 relative, parameters within ``update_gaps``'
-    bounds; an optimizer that does not step, or steps the wrong way, fails
-    those bounds."""
-    jcfg, cfg = _configs()
+    bounds, with ``cfg.remat`` the same on both sides; an optimizer that
+    does not step, or steps the wrong way, fails those bounds."""
+    jcfg, cfg = _configs(arch=arch, remat=remat)
     jstate, params = _masters(jcfg, cfg)
     p0 = {k: v.clone() for k, v in _paths(params).items()}
     jb, batch = _jax_batch(cfg, 0)
@@ -360,6 +415,123 @@ def test_three_train_steps_match_jax():
     flipped = {k: 2 * p0[k] - want[k] for k in want}
     for fault in (p0, flipped):
         assert update_gaps(fault, want, g1, lrs)[0] > 10
+
+
+# --------------------------------------------------------------------------
+# (e') cfg.remat against itself
+# --------------------------------------------------------------------------
+
+
+def _kernel_stand_ins(monkeypatch):
+    """Stand in for the card: every kernel wrapper counts its launch and
+    runs the plain version (after the wrapper's own autograd guard), and
+    ``kernels.ops`` takes the kernel route for CPU tensors."""
+    launches = {}
+
+    def stand_in(module, attr, name, plain):
+        def call(*args, **kw):
+            _guard.refuse_autograd(attr, *args)
+            launches[name] = launches.get(name, 0) + 1
+            return plain(*args, **kw)
+        monkeypatch.setattr(module, attr, call)
+
+    stand_in(fa, "flash_attention_bshd", "flash_attention",
+             ops._attention_bshd_ref)
+    stand_in(rn, "rmsnorm", "rmsnorm", ref.rmsnorm_ref)
+    stand_in(rn, "gated_rmsnorm", "gated_rmsnorm", ref.gated_rmsnorm_ref)
+    stand_in(ssd_kernel, "ssd_intra_chunk", "ssd_intra_chunk",
+             ref.ssd_intra_chunk_ref)
+    monkeypatch.setattr(ops, "_on_card", lambda t: True)
+    return launches
+
+
+@pytest.mark.parametrize("arch", ["llsc-100m", "mamba2-370m"])
+def test_remat_gives_the_gradients_of_none_bit_for_bit(arch, monkeypatch):
+    """Two layers, the kernel routes stood in: "full" and "dots" (and the
+    ``remat_dots`` flag) give the loss and the gradients of "none" bit for
+    bit, and launch every block-level forward kernel twice a step (once in
+    the forward, once in the backward's recompute); the final norm, outside
+    the periods, once."""
+    launches = _kernel_stand_ins(monkeypatch)
+    _, base = _configs(arch=arch, n_layers=2)
+    params = ts.init_train_state(base, torch.Generator().manual_seed(0),
+                                 ts.default_opt_cfg(base), device="cpu").params
+    batch = SyntheticLM(DataConfig(base.vocab_size, S, B, 0)).batch(0)
+    # ln1, and ln2 where the block has an FFN (the reduced mamba has one)
+    norms = 2 if base.d_ff else 1
+    per_block = ({"rmsnorm": norms, "gated_rmsnorm": 1, "ssd_intra_chunk": 1}
+                 if base.family == "ssm" else
+                 {"flash_attention": 1, "rmsnorm": norms})
+    out = {}
+    for remat, flags in (("none", ""), ("full", ""), ("dots", ""),
+                         ("full", "remat_dots")):
+        launches.clear()
+        cfg = dataclasses.replace(base, remat=remat)
+        with perf_flags(PerfFlags.parse("flash_kernel," + flags)):
+            loss, grads = ts.loss_and_grads(params, cfg, batch)
+        runs = 1 if remat == "none" else 2
+        want = {k: n * runs * cfg.n_layers for k, n in per_block.items()}
+        want["rmsnorm"] += 1
+        assert launches == want, (remat, flags, launches)
+        out[remat, flags] = (loss, _paths(grads))
+    loss0, g0 = out["none", ""]
+    for key, (loss, g) in out.items():
+        assert torch.equal(loss, loss0), key
+        assert all(torch.equal(g[k], g0[k]) for k in g0), key
+
+
+def test_remat_recompute_takes_the_forward_routes_on_another_thread():
+    """On the card the autograd engine runs the backward, and with it the
+    recompute of each period, on its own device thread, where the forward
+    thread's PerfFlags are not set.  The recompute must still take the
+    forward's routes (flash attention here): a backward run from another
+    thread gives the gradients of one run on the forward's thread."""
+    _, cfg = _configs(n_layers=2, remat="full")
+    params = ts.init_train_state(cfg, torch.Generator().manual_seed(0),
+                                 ts.default_opt_cfg(cfg), device="cpu").params
+    batch = SyntheticLM(DataConfig(cfg.vocab_size, S, B, 0)).batch(0)
+    with perf_flags(PerfFlags(flash_kernel=True)):
+        _, want = ts.loss_and_grads(params, cfg, batch)
+        masters = tf._tree_map(lambda p: p.detach().requires_grad_(), params)
+        loss = model_lib.lm_loss(ts.cast_params(masters, cfg.dtype), cfg,
+                                 batch["tokens"], batch["labels"])
+    out = {}
+
+    def backward():
+        try:
+            out["grads"] = torch.autograd.grad(loss, list(tf.leaves(masters)))
+        except RuntimeError as e:
+            out["error"] = e
+
+    worker = threading.Thread(target=backward)
+    worker.start()
+    worker.join(timeout=120)
+    assert not worker.is_alive() and "error" not in out, out.get("error")
+    assert all(torch.equal(g, w) for g, w in
+               zip(out["grads"], tf.leaves(want)))
+
+
+@pytest.mark.parametrize("arch", ["llsc-100m", "mamba2-370m"])
+def test_remat_leaves_the_serve_paths_alone(arch, monkeypatch):
+    """Prefill and decode record no graph, so ``_remat`` is never entered
+    and the prefill logits are the same whatever ``cfg.remat`` says."""
+    _, base = _configs(arch=arch, n_layers=2)
+    params = model_lib.init_params(base, torch.Generator().manual_seed(0),
+                                   device="cpu")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, base.vocab_size, (1, 24)))
+
+    def no_remat(*_a, **_k):
+        raise AssertionError("the serve path entered _remat")
+
+    monkeypatch.setattr(tf, "_remat", no_remat)
+    logits = {}
+    for remat in ("none", "full", "dots"):
+        cfg = dataclasses.replace(base, remat=remat)
+        logits[remat], caches = model_lib.prefill(params, cfg, tokens)
+        model_lib.decode_step(params, cfg, tokens[:, :1], caches, 24)
+    assert torch.equal(logits["full"], logits["none"])
+    assert torch.equal(logits["dots"], logits["none"])
 
 
 # --------------------------------------------------------------------------
@@ -434,3 +606,47 @@ def test_launch_train_usage_errors(capsys):
     assert launch_train.main(["--device", "cpu", "--reduced"]) == 2
     assert launch_train.main(["--steps", "0"]) == 2
     capsys.readouterr()
+
+
+def test_launch_train_mamba2_on_the_cpu(capsys):
+    rc = launch_train.main(["--arch", "mamba2-370m", "--reduced", "--device",
+                            "cpu", "--steps", "3", "--batch", "2", "--seq",
+                            "32", "--peak-flops", "1e12", "--mem-total-gb",
+                            "16"])
+    assert rc == 0
+    out = capsys.readouterr().out
+    losses = [float(x) for x in
+              out.split("[launch.train] losses:")[1].splitlines()[0].split()]
+    assert len(losses) == 3 and all(math.isfinite(x) for x in losses)
+    assert "start_step=0" in out
+    pub = JobRegistry.global_registry().entries()[
+        "train:mamba2-370m-reduced"]
+    assert 0 < pub.duty_cycle
+
+
+def test_launch_train_crashes_and_resumes(tmp_path, capsys):
+    """``--crash-at 5`` exits 1 with the injected failure after the
+    checkpoints of steps 2 and 4; the same command again resumes from step
+    4 and ends at the uninterrupted run's loss."""
+    args = ["--reduced", "--device", "cpu", "--steps", "8", "--batch", "2",
+            "--seq", "32", "--peak-flops", "1e12", "--mem-total-gb", "16"]
+    ckpt = ["--ckpt-dir", str(tmp_path / "ck"), "--ckpt-every", "2"]
+    assert launch_train.main(args + ckpt + ["--crash-at", "5"]) == 1
+    assert "error: injected node failure at step 5" in \
+        capsys.readouterr().err
+    assert sorted(p.name for p in (tmp_path / "ck").iterdir()) == [
+        "step-000000002", "step-000000004"]
+    assert launch_train.main(args + ckpt) == 0
+    resumed = capsys.readouterr().out
+    assert launch_train.main(args) == 0
+    whole = capsys.readouterr().out
+
+    def done(out):
+        line = out.split("[launch.train] done: ")[1].splitlines()[0]
+        return dict(kv.split("=") for kv in line.split())
+
+    assert done(resumed)["start_step"] == "4"
+    assert done(whole)["start_step"] == "0"
+    assert math.isclose(float(done(resumed)["final_loss"]),
+                        float(done(whole)["final_loss"]), rel_tol=1e-4)
+    assert launch_train.main(args + ckpt + ["--ckpt-every", "0"]) == 2
