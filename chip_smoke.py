@@ -92,17 +92,42 @@ It imports nothing of JAX or of the JAX package.  Phases:
     restored state equals the saved one bit for bit, the resume starts at
     4 and ends at the uninterrupted final loss within 1e-4 relative, an
     async save writes the same files; save and restore times, bytes;
-19. the launches of each main path (the serves of 4 and 7, the train runs
-    of 11 and 14), one ``{"kernels": [...]}`` line (each kernel's launches
-    summed over those paths), the nvidia-smi line, and last the
-    ``{"ok": true, ...}`` line.
+19. after a collection and ``empty_cache`` (memory allocated printed),
+    serve granite-moe-1b-a400m (mixture of experts: 32 experts, top-8, in
+    every one of 24 layers; 16 query and 8 KV heads of 64) at full width
+    and depth in bfloat16 as 4 serves llsc-100m, host-side init timed:
+    flash = 24 x prefills, rmsnorm = 49 x (prefills + decode steps), no
+    gated norm or SSD; the published duty counts the active parameters
+    (428,658,688 of 1,334,628,352);
+20. float32 logits of the card against the CPU over a 128-token prefill
+    (tokens drop: capacity 40) and 8 greedy decode steps of
+    granite-moe-1b-a400m at full width and 4 of its 24 layers (tolerance
+    1e-4, the same tokens), with every layer's top-k expert ids the same on
+    both sides (flips counted; the gap of the k-th and (k+1)-th router
+    logit printed at each);
+21. the serve of 19 under ``torch.profiler``, as 6, with the device time
+    of the MoE's parts: routing, the sort, the scatter, the expert
+    products and the combine;
+22. train granite-moe-1b-a400m at full width and depth as 11 (48 flash
+    and 97 RMSNorm launches a step), the host-side init timed apart;
+23. one granite train step under ``torch.profiler``, as 12, with the
+    MoE's forward parts and the stacked leaves' select backward;
+24. granite-moe-1b-a400m training in float32 on the card and on the CPU,
+    as 13, at full width and 4 of its 24 layers, with the MoE auxiliary
+    losses at (0.01, 1e-3);
+25. the launches of each main path (the serves of 4, 7 and 19, the train
+    runs of 11, 14 and 22), one ``{"kernels": [...]}`` line (each
+    kernel's launches summed over those paths), the nvidia-smi line, and
+    last the ``{"ok": true, ...}`` line.
 
 Any failed check raises, and the script exits non-zero; without a CUDA
 device, or outside a checkout, it prints no result and exits 1.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
 import json
 import platform
 import re
@@ -160,12 +185,15 @@ def cuda_ms(fn, iters=200, warmup=20):
 def device_activities(prof):
     """(name, microseconds, start us, end us) of every device activity
     (kernel, copy, set) in a torch.profiler trace, leaving out the host
-    operators that launch them."""
+    operators that launch them and the device-side spans of
+    ``record_function`` ranges (``labelled``), which are no work."""
     from torch.autograd import DeviceType
 
     return [(e.name, e.time_range.elapsed_us(), e.time_range.start,
              e.time_range.end) for e in prof.events()
-            if e.device_type == DeviceType.CUDA]
+            if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and e.name not in MOE_PARTS]
 
 
 def device_ms(fn, iters=100, warmup=10, tries=3):
@@ -298,12 +326,16 @@ def phase_kernels(torch, fa, rn, ref, hw):
         (1, 12, 12, 256, 64, True), (2, 4, 2, 100, 64, True),
         (1, 12, 12, 1024, 64, True), (1, 8, 2, 320, 128, True),
         (1, 4, 2, 16, 64, True), (1, 4, 2, 1, 64, True),
-        (8, 12, 12, 256, 64, True)]     # a llsc-100m train step
-    # llsc-100m's and mamba2-370m's rows (serve, train step), then widths of
-    # the scalar body
+        (8, 12, 12, 256, 64, True),     # a llsc-100m train step
+        # granite-moe-1b-a400m (GQA, 16 query and 8 KV heads): the serve's
+        # prefills and a train step
+        (1, 16, 8, 128, 64, True), (1, 16, 8, 256, 64, True),
+        (8, 16, 8, 256, 64, True)]
+    # llsc-100m's, mamba2-370m's and granite-moe-1b-a400m's rows (serve,
+    # train step), then widths of the scalar body
     rms_cases = [(32, 128), (33, 256), (7, 64), (4, 768), (256, 768),
-                 (2048, 768), (4, 1024), (320, 1024), (2048, 1024), (5, 100),
-                 (3, 101)]
+                 (2048, 768), (4, 1024), (256, 1024), (320, 1024),
+                 (2048, 1024), (5, 100), (3, 101)]
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[1]
         for B, H, Hk, S, D, causal in flash_cases:
@@ -343,26 +375,30 @@ def phase_kernels(torch, fa, rn, ref, hw):
     check_refusals(torch, fa, rn, randn)
 
     # Timings at the main paths' shapes, bf16: the attention of llsc-100m's
-    # prefills of 128 and 256 tokens and of a train step (8 x 256), and a
-    # norm over a decode step's 4 slots (2 in 3 norm launches of the serve)
-    # beside a prefill's rows and a train step's 2048, at llsc-100m's width
-    # (768) and mamba2-370m's (1024).  The kernels line keeps B = 1, S =
-    # 256 and 4 rows of 768.
+    # and granite-moe-1b-a400m's prefills of 128 and 256 tokens and of a
+    # train step (8 x 256), and a norm over a decode step's 4 slots (2 in 3
+    # norm launches of the serve) beside a prefill's rows and a train
+    # step's 2048, at llsc-100m's width (768) and mamba2-370m's and
+    # granite's (1024).  The kernels line keeps llsc-100m's B = 1, S = 256
+    # and 4 rows of 768.
     F = torch.nn.functional
     rows = []
     bf16 = torch.bfloat16
-    H, D = 12, 64
-    for B, S in ((8, 256), (1, 128), (1, 256)):
-        q, k, v = (randn(B, S, H, D, dtype=bf16) for _ in range(3))
+    D = 64
+    for H, Hk, B, S in ((16, 8, 8, 256), (16, 8, 1, 128), (16, 8, 1, 256),
+                        (12, 12, 8, 256), (12, 12, 1, 128), (12, 12, 1, 256)):
+        q = randn(B, S, H, D, dtype=bf16)
+        k, v = (randn(B, S, Hk, D, dtype=bf16) for _ in range(2))
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        n_bytes = 4 * B * S * H * D * 2
+        n_bytes = 2 * B * S * (H + Hk) * D * 2     # q, k, v read, o written
         flops = 4 * B * H * D * (S * (S + 1) // 2)  # unmasked (i, j <= i)
         bound, by = hw.bound_s(n_bytes, flops, bf16)
-        t = timed(f"flash bf16 B{B} S{S} H{H} D{D} causal (library: sdpa)",
+        t = timed(f"flash bf16 B{B} S{S} H{H} Hk{Hk} D{D} causal (library: "
+                  "sdpa)",
                   dict(ms=lambda: fa.flash_attention_bshd(q, k, v),
                        plain_ms=lambda: ref.attention_ref(qt, kt, vt),
                        library_ms=lambda: F.scaled_dot_product_attention(
-                           qt, kt, vt, is_causal=True)))
+                           qt, kt, vt, is_causal=True, enable_gqa=H != Hk)))
         print(f"  bound {bound * 1e3:.6f} ms ({by}: {n_bytes} B, {flops} "
               "FLOP)")
     rows.append(dict(name="flash_attention", route="cuda",
@@ -661,8 +697,9 @@ def make_requests(engine_mod, vocab, n, seed, lens):
 
 def phase_serve(torch, cfg, params, engine, counters, perf, *, lens, max_seq,
                 profile=False):
-    """Phases 4 and 7 (6 and 9 with ``profile``): serve 8 requests of the
-    prompt lengths ``lens`` through 4 slots, with every launch counter of
+    """Phases 4, 7 and 19 (6, 9 and 21 with ``profile``, a MoE model's
+    parts under ``MOE_PARTS``' labels): serve 8 requests of the prompt
+    lengths ``lens`` through 4 slots, with every launch counter of
     ``counters`` (name -> (module, attribute)) set to 0 just before."""
     eng = engine.ServeEngine(cfg, params, engine.EngineConfig(
         slots=4, max_seq_len=max_seq, job_name=f"chip_smoke:{cfg.name}"))
@@ -675,8 +712,11 @@ def phase_serve(torch, cfg, params, engine, counters, perf, *, lens, max_seq,
     with perf.perf_flags(perf.PerfFlags(flash_kernel=True)):
         if profile:
             from torch.profiler import ProfilerActivity, profile as prof_ctx
-            with prof_ctx(activities=[ProfilerActivity.CPU,
-                                      ProfilerActivity.CUDA]) as prof:
+
+            from repro_torch.models import moe
+            with labelled(moe, MOE_PARTS if cfg.moe else {}), prof_ctx(
+                    activities=[ProfilerActivity.CPU,
+                                ProfilerActivity.CUDA]) as prof:
                 stats = eng.run()
                 torch.cuda.synchronize()
             return eng, stats, prof
@@ -710,6 +750,7 @@ def report_serve(torch, np, eng, stats, counts, expect, cfg, registry):
                                           for t in c.tokens),
               f"request {c.request_id}: bad completion")
     pub = registry.entries()[f"chip_smoke:{cfg.name}"]
+    check(0 < pub.duty_cycle <= 1, f"published duty {pub.duty_cycle}")
     d = stats["decision"]
     print(f"LLload registry: duty {pub.duty_cycle:.6f} of the H100 "
           f"{cfg.dtype} peak, step {pub.step_time_s * 1e3:.3f} ms, device "
@@ -804,9 +845,69 @@ KERNEL_NAMES = {"flash_attention": re.compile(r"flash_fwd"),
                     r"ssd_intra_chunk_(mma_)?kernel")}
 
 
-def report_profile(eng_p, stats_p, prof, serve_wall, untraced, kernels):
-    """Phases 6 and 9: busy share of the traced serve, the device totals of
-    ``kernels`` (names of ``KERNEL_NAMES``), and its largest kernels."""
+def kernels_under(evt):
+    """(name, us) of the kernels a profiler host event and its children
+    launched."""
+    out = [(k.name, k.duration) for k in evt.kernels]
+    for child in evt.cpu_children:
+        out += kernels_under(child)
+    return out
+
+
+def device_ms_under(prof, match):
+    """Device ms of the kernels launched under every host event whose name
+    ``match`` accepts, its children included."""
+    return sum(us for e in prof.events() if match(e.name)
+               for _, us in kernels_under(e)) / 1e3
+
+
+# The MoE's parts (models/moe.py), by label: each function runs under a
+# torch.profiler.record_function range of its label while ``labelled``
+# holds.  "MoE, all" covers the others and the router's logits.
+MOE_PARTS = {"MoE, all": "moe_ffn", "route (top-k, softmax)": "_route",
+             "sort (positions)": "_positions", "scatter (dispatch)":
+             "_dispatch", "expert products": "_experts",
+             "combine": "_combine"}
+
+
+@contextlib.contextmanager
+def labelled(module, parts):
+    """Each function of ``module`` named in ``parts`` (label -> attribute)
+    wrapped in a ``record_function`` range of its label, while the context
+    holds."""
+    from torch.profiler import record_function
+
+    saved = {attr: getattr(module, attr) for attr in parts.values()}
+
+    def wrap(label, fn):
+        def call(*args, **kw):
+            with record_function(label):
+                return fn(*args, **kw)
+        return call
+
+    for label, attr in parts.items():
+        setattr(module, attr, wrap(label, saved[attr]))
+    try:
+        yield
+    finally:
+        for attr, fn in saved.items():
+            setattr(module, attr, fn)
+
+
+def report_parts(prof, parts, total_ms):
+    """Print the device ms under each label of ``parts`` and its share of
+    ``total_ms``."""
+    for label in parts:
+        ms = device_ms_under(prof, lambda name: name == label)
+        print(f"  {label}: {ms:.3f} ms device, {100 * ms / total_ms:.2f}% "
+              "of the device time")
+
+
+def report_profile(eng_p, stats_p, prof, serve_wall, untraced, kernels,
+                   parts=()):
+    """Phases 6, 9 and 21: busy share of the traced serve, the device
+    totals of ``kernels`` (names of ``KERNEL_NAMES``) and of the
+    ``record_function`` labels ``parts``, and its largest kernels."""
     acts = device_activities(prof)
     check(acts, "the traced serve recorded no device activity")
     per_kernel = {}
@@ -827,6 +928,7 @@ def report_profile(eng_p, stats_p, prof, serve_wall, untraced, kernels):
         print(f"  {label}: {sum(mine) / 1e3:.3f} ms device in {len(mine)} "
               f"launches, {100 * sum(mine) / 1e3 / busy_ms:.2f}% of the "
               "device time")
+    report_parts(prof, parts, busy_ms)
     for key, us in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:10]:
         print(f"  {us / 1e3:9.3f} ms  {key[:100]}")
 
@@ -918,19 +1020,25 @@ def phase_grads(torch, ops, ref, counters):
 
 
 def train_profile(torch, trainer, state, step, perf, kernels, backwards):
-    """Phases 12 and 15: one train step of ``trainer`` under torch.profiler:
-    its device time split into the hand-written forward kernels
-    ``kernels`` (names of ``KERNEL_NAMES``; their recompute under remat
-    included), the GEMMs outside the backwards of ``backwards``, the device
-    time under each autograd node of ``backwards`` (label -> node name),
-    and the rest; and the busy share."""
+    """Phases 12, 15 and 22: one train step of ``trainer`` under
+    torch.profiler: its device time split into the hand-written forward
+    kernels ``kernels`` (names of ``KERNEL_NAMES``; their recompute under
+    remat included), the GEMMs outside the backwards of ``backwards``, the
+    device time under each autograd node of ``backwards`` (label -> node
+    name), and the rest; and the busy share.  For a MoE model, also the
+    forward parts of ``MOE_PARTS`` (the recompute's included; their
+    backwards are not under the labels)."""
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.models import moe
+
+    parts = MOE_PARTS if trainer.cfg.moe else {}
     batch = trainer._batch(step)
     torch.cuda.synchronize()
     with perf.perf_flags(perf.PerfFlags(flash_kernel=True)):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with labelled(moe, parts), profile(
+                activities=[ProfilerActivity.CPU,
+                            ProfilerActivity.CUDA]) as prof:
             trainer.step_fn(state, batch)
             torch.cuda.synchronize()
     acts = device_activities(prof)
@@ -941,12 +1049,6 @@ def train_profile(torch, trainer, state, step, perf, kernels, backwards):
     def named(regex, kernels):
         return sum(us for name, us in kernels if regex.search(name)) / 1e3
 
-    def subtree(evt):
-        out = [(k.name, k.duration) for k in evt.kernels]
-        for child in evt.cpu_children:
-            out += subtree(child)
-        return out
-
     gemm = re.compile(r"gemm|gemv|nvjet|xmma|cutlass|cublas", re.I)
     backward = {}
     for label, node in backwards.items():
@@ -954,22 +1056,23 @@ def train_profile(torch, trainer, state, step, perf, kernels, backwards):
         for e in prof.events():
             if e.name.startswith("autograd::engine::evaluate_function") \
                     and e.name.endswith(node):
-                found += subtree(e)
+                found += kernels_under(e)
         backward[label] = found
     every = [(name, us) for name, us, _, _ in acts]
-    parts = {f"{label} (forward kernel)": named(KERNEL_NAMES[label], every)
-             for label in kernels}
-    parts["GEMMs outside those backwards"] = named(gemm, every) - sum(
+    shares = {f"{label} (forward kernel)": named(KERNEL_NAMES[label], every)
+              for label in kernels}
+    shares["GEMMs outside those backwards"] = named(gemm, every) - sum(
         named(gemm, k) for k in backward.values())
     for label, found in backward.items():
-        parts[label] = sum(us for _, us in found) / 1e3
-    parts["the rest"] = total - sum(parts.values())
+        shares[label] = sum(us for _, us in found) / 1e3
+    shares["the rest"] = total - sum(shares.values())
     print(f"device activity {total:.3f} ms within {span:.3f} ms from the "
           f"first device activity to the last: {100 * total / span:.2f}% "
           f"busy, {100 - 100 * total / span:.2f}% idle")
-    for label, ms in parts.items():
+    for label, ms in shares.items():
         print(f"  {label}: {ms:.3f} ms, {100 * ms / total:.2f}% of the "
               "device time")
+    report_parts(prof, parts, total)
     per_kernel = {}
     for name, us in every:
         per_kernel[name] = per_kernel.get(name, 0.0) + us
@@ -985,7 +1088,8 @@ def step_launches(cfg):
     periods and runs once.  The backwards are the plain versions'."""
     runs = 1 if cfg.remat == "none" else 2
     n = cfg.n_layers
-    norms = 2 if cfg.d_ff else 1        # ln1, and ln2 where there is an FFN
+    # ln1, and ln2 where there is an FFN: a MoE, or an MLP of d_ff > 0
+    norms = 2 if cfg.d_ff or "moe" in cfg.mlp_pattern else 1
     if cfg.family == "ssm":
         return {"flash_attention": 0, "rmsnorm": runs * norms * n + 1,
                 "gated_rmsnorm": runs * n, "ssd_intra_chunk": runs * n}
@@ -995,15 +1099,18 @@ def step_launches(cfg):
 
 def phase_train(torch, np, counters, registry, perf, smi, arch, flags=(),
                 *, phase):
-    """Phases 11-12 (llsc-100m) and 14-15 (mamba2-370m):
-    ``launch.train.main`` trains ``arch`` at full width and depth in
-    bfloat16 with float32 masters under the config's ``remat`` ("full"),
-    22 AdamW steps of 8 x 256 tokens, the counters set to 0 just before.
-    Every loss is finite; each step launches exactly ``step_launches``;
-    the registry holds the job's duty in (0, 1].  Steps 3-22 give the
-    median step time and tokens/s (the first 2 are warm-up).  Then one step
-    under the profiler.  Returns the launch counts."""
+    """Phases 11-12 (llsc-100m), 14-15 (mamba2-370m) and 22-23
+    (granite-moe-1b-a400m): ``launch.train.main`` trains ``arch`` at full
+    width and depth in bfloat16 with float32 masters under the config's
+    ``remat`` ("full"), 22 AdamW steps of 8 x 256 tokens, the counters set
+    to 0 just before.  Every loss is finite; each step launches exactly
+    ``step_launches``; the registry holds the job's duty in (0, 1], from
+    the model FLOPs of the active parameters (``count_params_analytic``).
+    Steps 3-22 give the median step time and tokens/s (the first 2 are
+    warm-up); the host-side init of the masters is timed apart.  Then one
+    step under the profiler.  Returns the launch counts."""
     from repro_torch.launch import train as launch_train
+    from repro_torch.models import model as model_lib
     from repro_torch.train import trainer as trainer_mod
 
     steps, batch, seq = 22, 8, 256
@@ -1017,6 +1124,13 @@ def phase_train(torch, np, counters, registry, perf, smi, arch, flags=(),
             self.out = super().run(resume)
             made.append(self)
             return self.out
+
+        def _init_state(self):
+            t0 = time.perf_counter()
+            state = super()._init_state()
+            torch.cuda.synchronize()
+            self.init_s = time.perf_counter() - t0
+            return state
 
     launch_train.Trainer = Recorded
     try:
@@ -1045,6 +1159,13 @@ def phase_train(torch, np, counters, registry, perf, smi, arch, flags=(),
     check(counts == expect, f"launch counts {counts} != {expect}")
     pub = registry.entries()[f"train:{cfg.name}"]
     check(0 < pub.duty_cycle <= 1, f"published duty {pub.duty_cycle}")
+    active = model_lib.count_params_analytic(cfg, active_only=True)
+    total = model_lib.count_params(cfg)
+    check(trainer._flops_per_step == 6.0 * active * batch * seq,
+          "the published duty does not count the active parameters")
+    print(f"duty from {active} active parameters of {total}; host-side init "
+          f"of the float32 masters and moments {trainer.init_s:.1f} s (not "
+          "in the step times)")
     times = np.array([h["time_s"] for h in trainer.history[2:]])
     med = float(np.median(times))
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
@@ -1139,14 +1260,56 @@ def update_gaps(got, want, g_want, lrs):
     return tight, loose, held / total
 
 
-def train_card_vs_cpu(torch, perf, cfg):
-    """Phases 13 and 16: ``cfg`` at full width in float32 (TF32 off), under
-    its ``remat`` ("full"), the same float32 masters from one seed on the
-    card and on the CPU, the same batch (1 x 256 tokens) for 2
-    ``make_train_step`` steps, with ``flash_kernel``.  Losses within 1e-4
-    relative; step-1 gradients within 5e-3 absolute (the reference's
-    gradient tolerance) and each leaf's within GRAD_RTOL of its largest;
-    parameters after 2 steps within ``update_gaps``' two bounds."""
+@contextlib.contextmanager
+def recorded_routes():
+    """While the context holds, every call of ``models.moe._route`` appends
+    (logits, expert ids) on the CPU to the yielded dict's list for the
+    device of its logits ("cpu" or "cuda").  On exit, prints how many
+    routes (token, layer) were compared between the two lists, call by
+    call, and how many of them chose other expert ids, with the gap between
+    the k-th and the (k+1)-th largest CPU logit at each.  The dict's
+    "flips" then holds that count."""
+    from repro_torch.models import moe
+
+    routes = {"cpu": [], "cuda": []}
+    route = moe._route
+
+    def recorded(logits, spec):
+        weights, idx = route(logits, spec)
+        routes[logits.device.type].append((logits.detach().cpu(),
+                                           idx.cpu()))
+        return weights, idx
+
+    moe._route = recorded
+    try:
+        yield routes
+    finally:
+        moe._route = route
+        n = flips = 0
+        for (lc, ic), (_, ig) in zip(routes["cpu"], routes["cuda"]):
+            other = (ic != ig).any(dim=-1)
+            n += other.numel()
+            flips += int(other.sum())
+            k = ic.shape[-1]
+            for top in lc[other].topk(k + 1, dim=-1).values:
+                print(f"  route flip: k-th and (k+1)-th router logits "
+                      f"{float(top[k - 1]):.9g}, {float(top[k]):.9g} (gap "
+                      f"{float(top[k - 1] - top[k]):.3e})")
+        routes["flips"] = flips
+        print(f"  expert routes: {len(routes['cpu'])} router calls on the "
+              f"CPU, {len(routes['cuda'])} on the card; {n} routes compared, "
+              f"{flips} chose other expert ids")
+
+
+def train_card_vs_cpu(torch, perf, cfg, aux_weights=None):
+    """Phases 13, 16 and 24: ``cfg`` at full width in float32 (TF32 off),
+    under its ``remat`` ("full"), the same float32 masters from one seed on
+    the card and on the CPU, the same batch (1 x 256 tokens) for 2
+    ``make_train_step`` steps (with the MoE auxiliary losses at
+    ``aux_weights``), with ``flash_kernel``.  Losses within 1e-4 relative;
+    step-1 gradients within 5e-3 absolute (the reference's gradient
+    tolerance) and each leaf's within GRAD_RTOL of its largest; parameters
+    after 2 steps within ``update_gaps``' two bounds."""
     from repro_torch.train import optimizer as opt
     from repro_torch.train import train_step as ts
     from repro_torch.train.data import DataConfig, SyntheticLM
@@ -1163,9 +1326,10 @@ def train_card_vs_cpu(torch, perf, cfg):
             t0 = time.perf_counter()
             params = _to(masters, dev)
             b = {k: v.to(dev) for k, v in batch.items()}
-            _, grads = ts.loss_and_grads(params, cfg, b)
+            _, grads = ts.loss_and_grads(params, cfg, b,
+                                         aux_weights=aux_weights)
             state = ts.TrainState(params, opt.init_opt_state(params, ocfg))
-            step_fn = ts.make_train_step(cfg, ocfg)
+            step_fn = ts.make_train_step(cfg, ocfg, aux_weights=aux_weights)
             losses, lrs = [], []
             for _ in range(2):
                 state, met = step_fn(state, b)
@@ -1373,6 +1537,64 @@ def phase_checkpoint(torch, np, smi):
     shutil.rmtree(root, ignore_errors=True)
 
 
+def phase_granite_serve(torch, np, model_lib, engine, counters, perf,
+                        registry, smi):
+    """Phases 19-21.  19: from the memory the earlier phases leave (printed
+    after a collection and ``empty_cache``), draw granite-moe-1b-a400m's
+    bf16 weights (the host-side init timed apart) and serve it as phase 4
+    serves llsc-100m, with a warm-up: flash = 24 x prefills, rmsnorm = 49 x
+    (prefills + decode steps), no gated norm or SSD; the engine's duty
+    counts the active parameters only.  20: float32 logits of the card
+    against the CPU at full width and 4 of the 24 layers over a 128-token
+    prefill (capacity 40 of 128 x 8 assignments over 32 experts: tokens
+    drop) and 8 greedy decode steps, tolerance 1e-4, and every layer's
+    top-k expert ids the same on both sides.  21: the serve of 19 under
+    torch.profiler, with the MoE's parts.  Returns (the serve's launch
+    counts, the config)."""
+    from repro_torch.configs import get_config
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"memory allocated at the start of the phase: "
+          f"{torch.cuda.memory_allocated() / 2 ** 20:.1f} MiB")
+    cfg = get_config("granite-moe-1b-a400m")
+    t0 = time.perf_counter()
+    params = model_lib.init_params(cfg, torch.Generator().manual_seed(0),
+                                   device="cuda")
+    torch.cuda.synchronize()
+    print(f"host-side init of {model_lib.count_params(cfg)} bf16 parameters "
+          f"(router float32): {time.perf_counter() - t0:.1f} s")
+    serve = dict(lens=(128, 256), max_seq=512)
+    phase_serve(torch, cfg, params, engine, counters, perf, **serve)  # warm-up
+    eng, stats, counts = phase_serve(torch, cfg, params, engine, counters,
+                                     perf, **serve)
+    n_pre, n_dec = len(eng.prefill_s), stats["steps"]
+    expect = {"flash_attention": cfg.n_layers * n_pre,
+              "rmsnorm": (2 * cfg.n_layers + 1) * (n_pre + n_dec),
+              "gated_rmsnorm": 0, "ssd_intra_chunk": 0}
+    report_serve(torch, np, eng, stats, counts, expect, cfg, registry)
+    active = model_lib.count_params_analytic(cfg, active_only=True)
+    check(eng._flops_per_token == 2.0 * active,
+          "the engine's duty does not count the active parameters")
+    print(f"duty from {active} active parameters of "
+          f"{model_lib.count_params(cfg)}")
+    serve_wall = stats["wall_s"]
+
+    print("=== 20. card vs CPU, granite-moe-1b-a400m full width, 4 of 24 "
+          "layers, float32 ===")
+    with recorded_routes() as routes:
+        card_vs_cpu(torch, np, model_lib, perf, engine.TIME_AXIS_LEAVES,
+                    dataclasses.replace(cfg, n_layers=4), 128)
+    check(routes["flips"] == 0, f"{routes['flips']} expert routes differ "
+          "between the card and the CPU")
+
+    print(f"=== 21. the serve of phase 19 under torch.profiler [{smi}] ===")
+    report_profile(*phase_serve(torch, cfg, params, engine, counters, perf,
+                                profile=True, **serve), serve_wall,
+                   "phase 19", ("flash_attention", "rmsnorm"), MOE_PARTS)
+    return counts, cfg
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke: run from the root of a checkout (src/repro_torch "
@@ -1488,7 +1710,9 @@ def main() -> int:
                                 profile=True, **serve), mamba_wall, "phase 7",
                    ("rmsnorm", "gated_rmsnorm", "ssd_intra_chunk"))
 
-    del params
+    # the engine holds the weights too: release both, or mamba2-370m's
+    # 703 MiB of bf16 weights stay allocated through the later phases
+    del params, eng
 
     print("=== 10. gradients of the five kernel entry points on the card ===")
     phase_grads(torch, ops, ref, counters)
@@ -1523,7 +1747,24 @@ def main() -> int:
           f"[{smi}] ===")
     phase_checkpoint(torch, np, smi)
 
-    print(f"=== 19. summary (whole run {time.perf_counter() - t_all:.1f} s) ===")
+    print(f"=== 19. serve granite-moe-1b-a400m, full width and depth, bf16, "
+          f"flash_kernel [{smi}] ===")
+    by_path["serve granite-moe-1b-a400m"], cfg = phase_granite_serve(
+        torch, np, model_lib, engine, counters, perf, registry, smi)
+
+    print(f"=== 22. train granite-moe-1b-a400m, full width and depth, bf16, "
+          f"flash_kernel, remat 'full', through launch.train [{smi}] ===")
+    by_path["train granite-moe-1b-a400m"] = phase_train(
+        torch, np, counters, registry, perf, smi, "granite-moe-1b-a400m",
+        ("--flags", "flash_kernel"), phase=22)
+
+    print("=== 24. card vs CPU, granite-moe-1b-a400m training, full width, 4 "
+          "of 24 layers, float32, aux losses (0.01, 1e-3) ===")
+    with recorded_routes():
+        train_card_vs_cpu(torch, perf, dataclasses.replace(
+            cfg, dtype="float32", n_layers=4), aux_weights=(0.01, 1e-3))
+
+    print(f"=== 25. summary (whole run {time.perf_counter() - t_all:.1f} s) ===")
     for path, counts in by_path.items():
         print(f"launches, {path}: {counts}")
     for row in rows:

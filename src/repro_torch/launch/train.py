@@ -12,7 +12,8 @@ job and the ``done:`` line, whose ``start_step=`` is the step it resumed
 from.  With ``--ckpt-dir`` it checkpoints every ``--ckpt-every`` steps and
 at the end, and resumes from the newest complete checkpoint there unless
 ``--no-resume``; ``--crash-at STEP`` injects a node failure before that
-step (the restart demo: run the same command again to resume).  Exit
+step (the restart demo: run the same command again to resume); 0, the
+reference's default of no crash, injects none.  Exit
 codes: 0 done; 1 environment (no card, kernel build failed) or an
 injected failure (``error: injected node failure at step N``); 2 usage.
 """
@@ -40,7 +41,8 @@ def main(argv=None) -> int:
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--crash-at", type=int, default=None,
-                    help="inject a failure at this step (restart demo)")
+                    help="inject a failure at this step (restart demo); "
+                         "0 injects none, as in the reference")
     ap.add_argument("--no-resume", action="store_true")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--flags", default="",
@@ -75,8 +77,7 @@ def main(argv=None) -> int:
                          job_name=f"train:{cfg.name}", device=args.device,
                          peak_flops=args.peak_flops,
                          mem_total_gb=args.mem_total_gb)
-    crash = CrashInjector(args.crash_at) if args.crash_at is not None \
-        else None
+    crash = CrashInjector(args.crash_at) if args.crash_at else None
     try:
         trainer = Trainer(cfg, tcfg, crash=crash)
         with perf_flags(flags):

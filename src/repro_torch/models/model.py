@@ -21,7 +21,29 @@ def count_params(cfg) -> int:
                transformer.leaves(transformer.param_spec(cfg)))
 
 
+def _moe_block_count(cfg) -> int:
+    n = cfg.n_periods * sum(1 for m in cfg.mlp_pattern if m == "moe")
+    n += sum(1 for m in cfg.mlp_pattern[: cfg.n_remainder] if m == "moe")
+    return n
+
+
+def count_params_analytic(cfg, active_only: bool = False) -> int:
+    """Total params; with active_only, MoE experts count only top_k/E."""
+    total = count_params(cfg)
+    if not active_only or cfg.moe is None:
+        return total
+    spec = cfg.moe
+    per_block_expert = 3 * cfg.d_model * spec.d_ff_expert  # w1,w3,w2
+    if cfg.act != "swiglu":
+        per_block_expert = 2 * cfg.d_model * spec.d_ff_expert
+    inactive = (_moe_block_count(cfg) * (spec.n_experts - spec.top_k)
+                * per_block_expert)
+    return total - inactive
+
+
 def model_flops(cfg, n_tokens: int, *, training: bool) -> float:
-    """MODEL_FLOPS: 6·N·D (train) or 2·N·D (inference); every parameter of
-    a dense or Mamba-2 model is active."""
-    return (6.0 if training else 2.0) * count_params(cfg) * n_tokens
+    """MODEL_FLOPS: 6·N·D (train) or 2·N·D (inference), N the active
+    parameters (every one of a dense or Mamba-2 model; of a MoE model's
+    experts, top_k of E)."""
+    n = count_params_analytic(cfg, active_only=True)
+    return (6.0 if training else 2.0) * n * n_tokens

@@ -2,9 +2,13 @@
 
 The field set is the reference's, so ``PerfFlags.parse`` accepts the same
 names; the port acts on ``flash_kernel``, which routes prefill attention
-through the CUDA flash kernel, and ``remat_dots``, which makes a
-``cfg.remat`` other than ``"none"`` act as ``"dots"``.  Defaults are all
-off, as in the reference.
+through the CUDA flash kernel; ``remat_dots``, which makes a ``cfg.remat``
+other than ``"none"`` act as ``"dots"``; and ``bf16_grads``, which rounds
+the cotangent of every block's output to bfloat16 in the backward
+(``models/transformer.py::_BF16Cotangent``), as the reference does.  The
+others act only through a device mesh in the reference, which the port
+does not have yet (``banded_local`` comes with local attention).  Defaults
+are all off, as in the reference.
 """
 from __future__ import annotations
 

@@ -1,10 +1,12 @@
-"""Model assembly: dense and Mamba-2 stacks (counterpart of
+"""Model assembly: dense, Mamba-2 and MoE stacks (counterpart of
 ``repro.models.transformer``).
 
 A model is ``n_periods`` copies of a period of layers plus a remainder.
 Each layer's mixer is GQA attention or, for family ``ssm``, the Mamba-2
-mixer; a block whose ``mlp`` is empty (``d_ff`` 0, as mamba2-370m) has no
-FFN and never reads ``ln2``.  The parameter and cache trees keep the
+mixer.  Its FFN is the one ``cfg.mlp_pattern`` names for its slot: the
+mixture of experts (``models/moe.py``) for ``"moe"``, else the SwiGLU MLP;
+a non-MoE block whose ``mlp`` is empty (``d_ff`` 0, as mamba2-370m) has
+no FFN and never reads ``ln2``.  The parameter and cache trees keep the
 reference's layout exactly, so that the bridge and the serving splice read
 them the same way::
 
@@ -27,6 +29,11 @@ activations are recomputed in the backward, kernels included, so a train
 step under ``"full"`` or ``"dots"`` launches every block-level forward
 kernel twice.  The remainder layers, the final norm and the serve paths
 are never rematerialized.
+
+With the ``bf16_grads`` PerfFlag each block's output is the identity in
+the forward and rounds its cotangent to bfloat16 in the backward (the
+reference's ``_bf16_cotangent``), in the periods, their recompute and the
+remainder layers alike.
 """
 from __future__ import annotations
 
@@ -38,6 +45,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch import resolve_device
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import Leaf, embed, mlp, rmsnorm
 from repro_torch.models.perf_flags import current as _perf
@@ -51,19 +59,21 @@ def model_dtype(cfg) -> torch.dtype:
 
 
 def check_supported(cfg):
-    """The port's model covers dense global-attention SwiGLU configs and
-    attention-free Mamba-2 (family ``ssm``) configs; raise for any feature
-    a later slice brings."""
+    """The port's model covers dense and MoE (family ``moe``) configs of
+    global attention and attention-free Mamba-2 (family ``ssm``) configs,
+    with SwiGLU FFNs (or GELU experts where every FFN is MoE, as the
+    reference's ``moe_ffn`` takes them); raise for any feature a later
+    slice brings."""
     mixer = "ssm" if cfg.family == "ssm" else "attn"
+    acts = ("swiglu", "gelu") if all(m == "moe" for m in cfg.mlp_pattern) \
+        else ("swiglu",)
     missing = [name for name, present in (
-        ("family " + cfg.family, cfg.family not in ("dense", "ssm")),
+        ("family " + cfg.family, cfg.family not in ("dense", "ssm", "moe")),
         (f"non-{mixer} layers in a {cfg.family} model",
          any(m != mixer for m in cfg.layer_pattern)),
-        ("non-mlp blocks", any(m != "mlp" for m in cfg.mlp_pattern)),
-        ("act " + cfg.act, cfg.act != "swiglu"),
+        ("act " + cfg.act, cfg.act not in acts),
         ("qkv_bias", cfg.qkv_bias),
         ("attn_logit_softcap", cfg.attn_logit_softcap is not None),
-        ("moe", cfg.moe is not None),
         ("mla", cfg.mla is not None), ("encoder", cfg.encoder is not None),
         ("frontend " + cfg.frontend, cfg.frontend != "none")) if present]
     if missing:
@@ -76,7 +86,7 @@ def check_supported(cfg):
 # ==========================================================================
 
 
-def _block_spec(cfg, kind):
+def _block_spec(cfg, kind, mlp_kind):
     d, hd = cfg.d_model, cfg.n_heads * cfg.d_head
     kvd = cfg.n_kv_heads * cfg.d_head
     spec = {"ln1": {"scale": Leaf((d,))},
@@ -89,7 +99,9 @@ def _block_spec(cfg, kind):
                          "wv": Leaf((d, kvd), d ** -0.5),
                          "wo": Leaf((hd, d), hd ** -0.5)}
     spec["mlp"] = {}    # attention-free SSM blocks (mamba2) have no FFN
-    if cfg.d_ff > 0:
+    if mlp_kind == "moe":
+        spec["mlp"] = moe_mod.moe_spec(d, cfg.moe)
+    elif cfg.d_ff > 0:
         spec["mlp"] = {"w1": Leaf((d, cfg.d_ff), d ** -0.5),
                        "w2": Leaf((cfg.d_ff, d), cfg.d_ff ** -0.5),
                        "w3": Leaf((d, cfg.d_ff), d ** -0.5)}
@@ -121,9 +133,10 @@ def param_spec(cfg):
     spec["blocks"] = {
         str(p): _tree_map(
             lambda leaf: leaf._replace(shape=(cfg.n_periods,) + leaf.shape),
-            _block_spec(cfg, cfg.layer_pattern[p]))
+            _block_spec(cfg, cfg.layer_pattern[p], cfg.mlp_pattern[p]))
         for p in range(cfg.period)}
-    spec["rem"] = {str(i): _block_spec(cfg, cfg.layer_pattern[i])
+    spec["rem"] = {str(i): _block_spec(cfg, cfg.layer_pattern[i],
+                                       cfg.mlp_pattern[i])
                    for i in range(cfg.n_remainder)}
     spec["final_norm"] = {"scale": Leaf((d,))}
     if not cfg.tie_embeddings:
@@ -169,14 +182,15 @@ def _layer(tree, i):
 
 
 def _blocks(params, cfg):
-    """(block params, block key, period index, mixer kind) in layer
-    order."""
+    """(block params, block key, period index, mixer kind, mlp kind) in
+    layer order."""
     for i in range(cfg.n_periods):
         for p in range(cfg.period):
             yield (_layer(params["blocks"][str(p)], i), str(p), i,
-                   cfg.layer_pattern[p])
+                   cfg.layer_pattern[p], cfg.mlp_pattern[p])
     for r in range(cfg.n_remainder):
-        yield params["rem"][str(r)], str(r), None, cfg.layer_pattern[r]
+        yield (params["rem"][str(r)], str(r), None, cfg.layer_pattern[r],
+               cfg.mlp_pattern[r])
 
 
 # ==========================================================================
@@ -184,15 +198,38 @@ def _blocks(params, cfg):
 # ==========================================================================
 
 
-def _apply_mlp(bp, x, cfg):
-    if not bp["mlp"]:
-        return x    # no FFN (mamba2): ln2 is not read
+def _apply_mlp(bp, x, cfg, mlp_kind, *, want_aux=False):
+    """Returns (x, aux): aux the [load_balance, z] router losses [2] of a
+    MoE block when ``want_aux``, else None."""
+    if mlp_kind != "moe" and not bp["mlp"]:
+        return x, None    # no FFN (mamba2): ln2 is not read
     h = rmsnorm(bp["ln2"], x, cfg.norm_eps)
-    return x + mlp(bp["mlp"], h, cfg.act)
+    if mlp_kind != "moe":
+        return x + mlp(bp["mlp"], h, cfg.act), None
+    aux = None
+    if want_aux:
+        aux = torch.stack(moe_mod.moe_aux_losses(bp["mlp"], h, cfg.moe))
+    return x + moe_mod.moe_ffn(bp["mlp"], h, cfg.moe, cfg.act), aux
 
 
-def apply_block_full(bp, x, cfg, kind, positions):
-    """Returns (x, cache entry of the layer, in the cache's dtypes)."""
+class _BF16Cotangent(torch.autograd.Function):
+    """The identity in the forward; the backward rounds the cotangent to
+    bfloat16 and back to its dtype (the reference's ``_bf16_cotangent``)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(torch.bfloat16).to(g.dtype)
+
+
+def apply_block_full(bp, x, cfg, kind, mlp_kind, positions, *,
+                     want_aux=False):
+    """Returns (x, cache entry of the layer in the cache's dtypes, aux):
+    aux as ``_apply_mlp`` gives it.  Under the ``bf16_grads`` PerfFlag the
+    block's output goes through ``_BF16Cotangent``."""
     h = rmsnorm(bp["ln1"], x, cfg.norm_eps)
     dt = model_dtype(cfg)
     if kind == "ssm":
@@ -202,10 +239,13 @@ def apply_block_full(bp, x, cfg, kind, positions):
         y, (k, v) = attn_mod.gqa_attention(bp["mixer"], h, cfg,
                                            positions=positions)
         cache = {"k": k.to(dt), "v": v.to(dt)}
-    return _apply_mlp(bp, x + y, cfg), cache
+    x, aux = _apply_mlp(bp, x + y, cfg, mlp_kind, want_aux=want_aux)
+    if _perf().bf16_grads:
+        x = _BF16Cotangent.apply(x)
+    return x, cache, aux
 
 
-def apply_block_decode(bp, x, cfg, kind, cache, cache_len):
+def apply_block_decode(bp, x, cfg, kind, mlp_kind, cache, cache_len):
     h = rmsnorm(bp["ln1"], x, cfg.norm_eps)
     if kind == "ssm":
         y, _, _ = ssm_mod.mamba2_decode(bp["mixer"], h, cfg, cache["conv"],
@@ -213,7 +253,7 @@ def apply_block_decode(bp, x, cfg, kind, cache, cache_len):
     else:
         y, _, _ = attn_mod.gqa_decode(bp["mixer"], h, cfg, cache["k"],
                                       cache["v"], cache_len)
-    return _apply_mlp(bp, x + y, cfg)
+    return _apply_mlp(bp, x + y, cfg, mlp_kind)[0]
 
 
 def input_embeddings(params, cfg, tokens):
@@ -264,40 +304,55 @@ def _records(params) -> bool:
         t.requires_grad for t in leaves(params))
 
 
-def forward_hidden(params, cfg, tokens, *, want_cache=False):
+def forward_hidden(params, cfg, tokens, *, want_cache=False,
+                   want_aux=False):
     """tokens [B,S] -> (hidden [B,S,d] after the final norm, caches or
-    None).  Each period of the stacked blocks goes through ``_remat`` when
-    autograd records."""
+    None), or with ``want_aux`` (hidden, caches, aux [2]): the MoE blocks'
+    (load_balance, z) router losses summed and divided by ``cfg.n_layers``,
+    every layer counted, as the reference's.  Each period of the stacked
+    blocks goes through ``_remat`` when autograd records, its share of aux
+    one of its outputs."""
     check_supported(cfg)
     x = input_embeddings(params, cfg, tokens)
     positions = torch.arange(x.shape[1], device=x.device)
 
-    def period_fn(x, pparams):
+    def period_fn(x, aux, pparams):
         caches = {}
         for p in range(cfg.period):
-            x, caches[str(p)] = apply_block_full(
-                pparams[str(p)], x, cfg, cfg.layer_pattern[p], positions)
-        return x, caches
+            x, caches[str(p)], a = apply_block_full(
+                pparams[str(p)], x, cfg, cfg.layer_pattern[p],
+                cfg.mlp_pattern[p], positions, want_aux=want_aux)
+            if a is not None:
+                aux = aux + a
+        return x, aux, caches
 
     if _records(params):
         period_fn = _remat(period_fn, cfg)
+    aux = torch.zeros(2, dtype=F32, device=x.device) if want_aux else None
     stacked = []
     for i in range(cfg.n_periods):
-        x, c = period_fn(x, {str(p): _layer(params["blocks"][str(p)], i)
-                             for p in range(cfg.period)})
+        x, aux, c = period_fn(x, aux, {
+            str(p): _layer(params["blocks"][str(p)], i)
+            for p in range(cfg.period)})
         if want_cache:
             stacked.append(c)
     rem = {}
     for r in range(cfg.n_remainder):
-        x, rem[str(r)] = apply_block_full(params["rem"][str(r)], x, cfg,
-                                          cfg.layer_pattern[r], positions)
+        x, rem[str(r)], a = apply_block_full(
+            params["rem"][str(r)], x, cfg, cfg.layer_pattern[r],
+            cfg.mlp_pattern[r], positions, want_aux=want_aux)
+        if a is not None:
+            aux = aux + a
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    if not want_cache:
-        return x, None
-    blocks = {key: {n: torch.stack([c[key][n] for c in stacked])
-                    for n in stacked[0][key]}
-              for key in stacked[0]} if stacked else {}
-    return x, {"blocks": blocks, "rem": rem}
+    caches = None
+    if want_cache:
+        blocks = {key: {n: torch.stack([c[key][n] for c in stacked])
+                        for n in stacked[0][key]}
+                  for key in stacked[0]} if stacked else {}
+        caches = {"blocks": blocks, "rem": rem}
+    if want_aux:
+        return x, caches, aux / max(cfg.n_layers, 1)
+    return x, caches
 
 
 def logits_last(params, cfg, hidden):
@@ -352,12 +407,19 @@ def chunked_ce_loss(params, cfg, hidden, labels):
     return loss_sum / count.clamp(min=1)
 
 
-def lm_loss(params, cfg, tokens, labels):
+def lm_loss(params, cfg, tokens, labels, *, aux_weights=None):
     """Mean next-token CE of ``tokens`` [B,S] against ``labels`` [B,S]
     (-1 = ignore), the reference's ``lm_loss`` for the configs
-    ``check_supported`` takes (no MoE auxiliary loss, no frontend)."""
-    hidden, _ = forward_hidden(params, cfg, tokens)
-    return chunked_ce_loss(params, cfg, hidden, labels)
+    ``check_supported`` takes (no frontend).  ``aux_weights=(lb_w, z_w)``
+    adds lb_w * load_balance + z_w * z of ``forward_hidden(want_aux=)``;
+    ignored for a config without MoE."""
+    want_aux = aux_weights is not None and cfg.moe is not None
+    if not want_aux:
+        hidden, _ = forward_hidden(params, cfg, tokens)
+        return chunked_ce_loss(params, cfg, hidden, labels)
+    hidden, _, aux = forward_hidden(params, cfg, tokens, want_aux=True)
+    return (chunked_ce_loss(params, cfg, hidden, labels)
+            + aux_weights[0] * aux[0] + aux_weights[1] * aux[1])
 
 
 def prefill(params, cfg, tokens):
@@ -373,12 +435,12 @@ def decode_step(params, cfg, token, caches, cache_len):
     fp32, caches)."""
     check_supported(cfg)
     x = embed(params["embed"], token, cfg.embed_scale)
-    for bp, key, i, kind in _blocks(params, cfg):
+    for bp, key, i, kind, mlp_kind in _blocks(params, cfg):
         if i is None:
             c = caches["rem"][key]
         else:
             c = {n: t[i] for n, t in caches["blocks"][key].items()}
-        x = apply_block_decode(bp, x, cfg, kind, c, cache_len)
+        x = apply_block_decode(bp, x, cfg, kind, mlp_kind, c, cache_len)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return logits_last(params, cfg, x), caches
 

@@ -42,19 +42,23 @@ def cast_params(params, dtype):
     """float32 leaves with more than one dimension in ``dtype``; the others
     as they are.  So the stacked ``ln1``/``ln2`` scales [n_periods, d] take
     the model dtype while ``final_norm``'s [d] stays float32, as the
-    reference's ``cast_params`` leaves them."""
+    reference's ``cast_params`` leaves them; the MoE router [n_periods, d,
+    E], an fp32 leaf, takes it too, and ``moe_ffn`` lifts it back to
+    float32."""
     dt = getattr(torch, dtype) if isinstance(dtype, str) else dtype
     return _tree_map(
         lambda p: p.to(dt) if p.dtype == F32 and p.dim() > 1 else p, params)
 
 
-def loss_and_grads(params, cfg, batch):
+def loss_and_grads(params, cfg, batch, *, aux_weights=None):
     """(loss, gradients with respect to the float32 masters ``params``) of
-    ``lm_loss`` on the masters cast by ``cast_params``; the gradients are
-    float32 and laid out as ``params``."""
+    ``lm_loss`` (with the MoE auxiliary losses at ``aux_weights``) on the
+    masters cast by ``cast_params``; the gradients are float32 and laid out
+    as ``params``."""
     masters = _tree_map(lambda p: p.detach().requires_grad_(), params)
     loss = model_lib.lm_loss(cast_params(masters, cfg.dtype), cfg,
-                             batch["tokens"], batch["labels"])
+                             batch["tokens"], batch["labels"],
+                             aux_weights=aux_weights)
     # a leaf the forward does not read (ln2 of a block without FFN) gets a
     # zero gradient, as jax.grad gives it
     grads = iter(torch.autograd.grad(loss, list(leaves(masters)),
@@ -62,13 +66,16 @@ def loss_and_grads(params, cfg, batch):
     return loss.detach(), _tree_map(lambda _: next(grads), params)
 
 
-def make_train_step(cfg, opt_cfg: AdamWConfig):
+def make_train_step(cfg, opt_cfg: AdamWConfig, *, aux_weights=None):
     """Returns ``train_step(state, batch) -> (state, metrics)``; ``batch``
     holds ``tokens`` and ``labels`` [B,S] on the state's device, and the
-    metrics are ``loss``, ``grad_norm`` (0-d tensors) and ``lr``."""
+    metrics are ``loss``, ``grad_norm`` (0-d tensors) and ``lr``.
+    ``aux_weights=(lb, z)`` enables the MoE load-balance / router-z
+    auxiliary losses (ST-MoE defaults: (0.01, 1e-3))."""
 
     def train_step(state: TrainState, batch: dict):
-        loss, grads = loss_and_grads(state.params, cfg, batch)
+        loss, grads = loss_and_grads(state.params, cfg, batch,
+                                     aux_weights=aux_weights)
         new_params, new_opt, metrics = adamw_update(
             state.params, grads, state.opt, opt_cfg)
         metrics["loss"] = loss

@@ -4,8 +4,9 @@ of test_train_extras.py::test_async_checkpoint_trainer; a train state
 written by either package restored by the other, leaf for leaf
 (``.opt.step`` included); the async save's snapshot invariant; and the
 port's copies of ``ElasticResizePlan`` and ``CrashInjector`` against the
-originals.  The train states are reduced llsc-100m and reduced
-mamba2-370m.
+originals.  The train states are reduced llsc-100m, reduced
+mamba2-370m and reduced granite-moe-1b-a400m (its float32 router among
+the leaves).
 """
 import os
 import threading
@@ -32,7 +33,7 @@ from repro_torch.train.data import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.train.trainer import Trainer, TrainerConfig  # noqa: E402
 
 F32 = torch.float32
-ARCHS = ["llsc-100m", "mamba2-370m"]
+ARCHS = ["llsc-100m", "mamba2-370m", "granite-moe-1b-a400m"]
 
 
 def _tc(**changes):

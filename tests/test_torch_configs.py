@@ -20,7 +20,54 @@ from repro_torch.models.perf_flags import PerfFlags  # noqa: E402
 
 
 def test_registered_archs():
-    assert list_archs() == ["llsc-100m", "mamba2-370m"]
+    assert list_archs() == ["granite-moe-1b-a400m", "llsc-100m",
+                            "mamba2-370m", "qwen3-moe-30b-a3b"]
+
+
+MOE_ARCHS = ["granite-moe-1b-a400m", "qwen3-moe-30b-a3b"]
+
+
+@pytest.mark.parametrize("reduced", [False, True])
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_config_equals_reference(arch, reduced):
+    mine, ref = get_config(arch), jax_get_config(arch)
+    if reduced:
+        mine, ref = reduced_config(mine), jax_reduced(ref)
+    assert dataclasses.asdict(mine) == dataclasses.asdict(ref)
+
+
+@pytest.mark.parametrize("variant", ["full", "reduced", "reduced_2_layers",
+                                     "reduced_gelu"])
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_param_counts_and_flops_equal_reference(arch, variant):
+    """count_params, count_params_analytic (total and active) and
+    model_flops of the reference; model_flops counts the active parameters
+    only."""
+    cfg, ref = get_config(arch), jax_get_config(arch)
+    if variant != "full":
+        cfg, ref = reduced_config(cfg), jax_reduced(ref)
+    change = {"reduced_2_layers": {"n_layers": 2},
+              "reduced_gelu": {"act": "gelu"}}.get(variant, {})
+    cfg = dataclasses.replace(cfg, **change)
+    ref = dataclasses.replace(ref, **change)
+    assert model_lib.count_params(cfg) == jax_model.count_params(ref)
+    for active in (False, True):
+        assert model_lib.count_params_analytic(cfg, active) == \
+            jax_model.count_params_analytic(ref, active)
+    active = model_lib.count_params_analytic(cfg, True)
+    assert active < model_lib.count_params(cfg)
+    for training in (False, True):
+        assert model_lib.model_flops(cfg, 7, training=training) == \
+            jax_model.model_flops(ref, 7, training=training) == \
+            (6.0 if training else 2.0) * active * 7
+
+
+def test_granite_counts():
+    cfg = get_config("granite-moe-1b-a400m")
+    assert model_lib.count_params(cfg) == 1_334_628_352
+    assert model_lib.count_params_analytic(cfg, True) == 428_658_688
+    assert model_lib.model_flops(cfg, 256, training=True) == \
+        6 * 428_658_688 * 256
 
 
 @pytest.mark.parametrize("reduced", [False, True])
@@ -75,13 +122,13 @@ def test_unsupported_features_raise():
                      "mlp_pattern": ("mlp", "mlp")}, "non-ssm layers"),
     ("llsc-100m", {"layer_pattern": ("attn", "attn_local"), "attn_window": 8,
                    "mlp_pattern": ("mlp", "mlp")}, "non-attn layers"),
-    ("qwen3-moe-30b-a3b", {}, "moe"),
+    ("granite-moe-1b-a400m", {"act": "geglu"}, "act geglu"),
     ("minicpm3-4b", {}, "mla"),
     ("whisper-base", {}, "encoder"),
 ])
 def test_unsupported_mixes_raise(arch, change, match):
-    """Hybrid attention+SSM, local attention, MoE, MLA and encoders stay
-    unsupported."""
+    """Hybrid attention+SSM, local attention, other than SwiGLU or GELU
+    experts, MLA and encoders stay unsupported."""
     cfg = dataclasses.replace(jax_get_config(arch), **change)
     mine = ModelConfig(**{f.name: getattr(cfg, f.name)
                           for f in dataclasses.fields(cfg)})

@@ -125,3 +125,16 @@ def test_launcher_serves_mamba2_on_the_cpu(capsys):
     assert rc == 0
     out = capsys.readouterr().out
     assert "[serve:mamba2-370m-reduced] 3 requests, 12 tokens" in out
+
+
+def test_launcher_serves_granite_on_the_cpu(capsys):
+    from repro_torch.launch import serve as launch_serve
+
+    rc = launch_serve.main(["--arch", "granite-moe-1b-a400m", "--reduced",
+                            "--device", "cpu", "--requests", "3", "--slots",
+                            "2", "--prompt-len", "16", "--max-new", "4",
+                            "--flags", "flash_kernel", "--peak-flops",
+                            "1e12", "--mem-total-gb", "16"])
+    assert rc == 0
+    out = capsys.readouterr().out
+    assert "[serve:granite-moe-1b-a400m-reduced] 3 requests, 12 tokens" in out

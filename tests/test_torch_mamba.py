@@ -7,7 +7,7 @@ two stacked layers (d_ff=0, the block the full model runs).  Tolerance
 
 Also, at full size without allocating: the port's parameter spec and
 cache tree equal the reference's leaf by leaf in shape and dtype, for
-mamba2-370m and llsc-100m.
+mamba2-370m, llsc-100m and the two MoE configs (the router float32).
 """
 import dataclasses
 
@@ -121,7 +121,8 @@ def test_greedy_decode_matches(setup):
 # --------------------------------------------------------------------------
 
 
-ARCHS = ["mamba2-370m", "llsc-100m"]
+ARCHS = ["mamba2-370m", "llsc-100m", "granite-moe-1b-a400m",
+         "qwen3-moe-30b-a3b"]
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -2,7 +2,13 @@
 S=128 (as tests/test_flash_integration.py): the same bridged weights and
 tokens give the same hidden states, prefill logits, caches and greedy
 decode, with the flash path on and off.  Tolerance 5e-5, the reference's
-own for the flash path at model level."""
+own for the flash path at model level.  The same for reduced
+granite-moe-1b-a400m (one MoE layer, capacity factor 4: nothing drops)
+and for two stacked MoE layers at the full config's capacity factor 1.25,
+where the 128-token groups drop tokens; there the MoE auxiliary losses of
+``forward_hidden(want_aux=True)`` are held to the reference's too."""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -25,14 +31,35 @@ TOL = 5e-5
 B, S, STEPS = 2, 128, 8
 
 
-@pytest.fixture(scope="module")
-def setup():
-    jcfg = jax_reduced("llsc-100m")
-    cfg = reduced_config("llsc-100m")
+def _setup(jcfg, cfg):
     jparams = jax_init(jcfg, jax.random.PRNGKey(0))
     params = from_jax_params(jax.tree.map(np.asarray, jparams), cfg, "cpu")
     tokens = np.random.default_rng(1).integers(0, cfg.vocab_size, (B, S))
     return jcfg, cfg, jparams, params, tokens
+
+
+@pytest.fixture(scope="module")
+def setup():
+    return _setup(jax_reduced("llsc-100m"), reduced_config("llsc-100m"))
+
+
+def granite_configs(variant):
+    """(JAX config, port config) of reduced granite-moe-1b-a400m:
+    ``"reduced"`` as ``reduced_config`` makes it, or ``"2_layers_drops"``
+    with two stacked layers and the full config's capacity factor."""
+    jcfg = jax_reduced("granite-moe-1b-a400m")
+    cfg = reduced_config("granite-moe-1b-a400m")
+    if variant == "2_layers_drops":
+        jcfg = dataclasses.replace(jcfg, n_layers=2, moe=dataclasses.replace(
+            jcfg.moe, capacity_factor=1.25))
+        cfg = dataclasses.replace(cfg, n_layers=2, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=1.25))
+    return jcfg, cfg
+
+
+@pytest.fixture(scope="module", params=["reduced", "2_layers_drops"])
+def granite(request):
+    return _setup(*granite_configs(request.param))
 
 
 def _err(a, b):
@@ -42,6 +69,26 @@ def _err(a, b):
 
 @pytest.mark.parametrize("flash", [False, True])
 def test_forward_hidden_and_prefill_match(setup, flash):
+    _check_prefill(setup, flash)
+
+
+@pytest.mark.parametrize("flash", [False, True])
+def test_granite_forward_hidden_and_prefill_match(granite, flash):
+    _check_prefill(granite, flash)
+
+
+def test_granite_aux_losses_match(granite):
+    """(load_balance, z) summed over the MoE blocks over n_layers."""
+    jcfg, cfg, jparams, params, tokens = granite
+    _, _, jaux = jax_tf.forward_hidden(jparams, jcfg, jnp.asarray(tokens),
+                                       want_aux=True)
+    _, caches, aux = tf.forward_hidden(params, cfg, torch.from_numpy(tokens),
+                                       want_aux=True)
+    assert caches is None and aux.shape == (2,) and aux.dtype == torch.float32
+    np.testing.assert_allclose(aux.numpy(), np.asarray(jaux), rtol=1e-5)
+
+
+def _check_prefill(setup, flash):
     jcfg, cfg, jparams, params, tokens = setup
     with jax_perf_flags(JaxFlags(flash_kernel=flash)):
         jh, _ = jax_tf.forward_hidden(jparams, jcfg, jnp.asarray(tokens))
@@ -63,6 +110,14 @@ def test_forward_hidden_and_prefill_match(setup, flash):
 
 
 def test_init_cache_tree_matches(setup):
+    _check_cache_tree(setup)
+
+
+def test_granite_init_cache_tree_matches(granite):
+    _check_cache_tree(granite)
+
+
+def _check_cache_tree(setup):
     jcfg, cfg, *_ = setup
     jc = jax_tf.init_cache(jcfg, 3, 40)
     c = model_lib.init_cache(cfg, 3, 40, device="cpu")
@@ -100,6 +155,16 @@ def _pad_time(tree_jax, tree_torch, extra):
 
 @pytest.mark.parametrize("flash", [False, True])
 def test_greedy_decode_matches(setup, flash):
+    _check_decode(setup, flash)
+
+
+@pytest.mark.parametrize("flash", [False, True])
+def test_granite_greedy_decode_matches(granite, flash):
+    """B = 2 decode rows: a group each, so no decode token drops."""
+    _check_decode(granite, flash)
+
+
+def _check_decode(setup, flash):
     jcfg, cfg, jparams, params, tokens = setup
     with jax_perf_flags(JaxFlags(flash_kernel=flash)):
         jlogits, jcache = jax_tf.prefill(jparams, jcfg, jnp.asarray(tokens))

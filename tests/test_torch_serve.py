@@ -1,8 +1,11 @@
-"""The port's ServeEngine against the JAX package's on reduced llsc-100m
-and reduced mamba2-370m, fp32, greedy, with the same bridged weights:
-requests of ragged prompt and output lengths through 2 slots give
-identical completions, token for token, and the engine publishes to the
-port's LLload registry."""
+"""The port's ServeEngine against the JAX package's on reduced llsc-100m,
+reduced mamba2-370m and reduced granite-moe-1b-a400m, fp32, greedy, with
+the same bridged weights: requests of ragged prompt and output lengths
+through 2 slots (and, for granite, 3 slots, whose decode tokens form one
+group that drops tokens) give identical completions, token for token,
+and the engine publishes to the port's LLload registry."""
+import dataclasses
+
 import jax
 import numpy as np
 import pytest
@@ -14,6 +17,7 @@ from repro.models import init_params as jax_init  # noqa: E402
 from repro.serve import engine as jax_engine  # noqa: E402
 from repro_torch.bridge import from_jax_params  # noqa: E402
 from repro_torch.configs import reduced_config  # noqa: E402
+from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.perf_flags import PerfFlags, perf_flags  # noqa: E402
 from repro_torch.monitor import JobRegistry  # noqa: E402
 from repro_torch.serve import engine  # noqa: E402
@@ -133,6 +137,65 @@ def test_mamba_completions_identical_to_jax(mamba_weights):
         [5 + i % 3 for i in range(len(lens))]
 
 
+@pytest.fixture(scope="module", params=[4.0, 1.25])
+def granite_weights(request):
+    """Reduced granite-moe-1b-a400m at capacity factor 4 (reduced_config's:
+    nothing drops) and 1.25 (the full config's)."""
+    def moe_cf(cfg):
+        return dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=request.param))
+
+    jcfg = moe_cf(jax_reduced("granite-moe-1b-a400m"))
+    cfg = moe_cf(reduced_config("granite-moe-1b-a400m"))
+    jparams = jax_init(jcfg, jax.random.PRNGKey(0))
+    params = from_jax_params(jax.tree.map(np.asarray, jparams), cfg, "cpu")
+    return jcfg, cfg, jparams, params
+
+
+@pytest.mark.parametrize("slots,flash", [(2, False), (2, True), (3, True)])
+def test_granite_completions_identical_to_jax(granite_weights, slots,
+                                              flash, monkeypatch):
+    """Through 2 slots each decode row is a group of its own; through 3
+    the rows form one group of 3 tokens, in which a free slot's token
+    competes for capacity with the live ones, as in the reference (at
+    factor 1.25 the capacity is 1 and tokens drop)."""
+    jcfg, cfg, jparams, params = granite_weights
+    jeng = jax_engine.ServeEngine(jcfg, jparams, jax_engine.EngineConfig(
+        slots=slots, max_seq_len=64, monitor=False))
+    job = f"serve-granite-{slots}-{flash}"
+    eng = engine.ServeEngine(cfg, params, engine.EngineConfig(
+        slots=slots, max_seq_len=64, job_name=job, device="cpu",
+        **CPU_FIGURES))
+    for r in _requests(jax_engine, jcfg.vocab_size):
+        jeng.submit(r)
+    for r in _requests(engine, cfg.vocab_size):
+        eng.submit(r)
+    jeng.run()
+    decode_drops = []
+    positions = moe._positions
+
+    G = moe._pick_groups(slots, 1)
+    T = slots // G
+
+    def spy(e_flat, E):
+        pos = positions(e_flat, E)
+        if e_flat.shape == (G, T * cfg.moe.top_k):       # a decode step
+            decode_drops.append(int((pos >= moe.capacity(T, cfg.moe)).sum()))
+        return pos
+
+    monkeypatch.setattr(moe, "_positions", spy)
+    with perf_flags(PerfFlags(flash_kernel=flash)):
+        stats = eng.run()
+    theirs = {c.request_id: c.tokens for c in jeng.completions}
+    mine = {c.request_id: c.tokens for c in eng.completions}
+    assert mine == theirs and stats["requests"] == 6
+    drops = slots == 3 and cfg.moe.capacity_factor < 4
+    assert decode_drops and (sum(decode_drops) > 0) == drops
+    pub = JobRegistry.global_registry().entries()[job]
+    assert 0 < pub.duty_cycle
+    JobRegistry.global_registry().remove(job)
+
+
 def test_cpu_engine_needs_device_figures(weights):
     _, cfg, _, params = weights
     with pytest.raises(ValueError, match="peak_flops"):
@@ -157,7 +220,8 @@ def test_registry_aggregates_jobs():
 
 @pytest.mark.parametrize("arch,reduced", [("llsc-100m", False),
                                           ("llsc-100m", True),
-                                          ("mamba2-370m", False)])
+                                          ("mamba2-370m", False),
+                                          ("granite-moe-1b-a400m", False)])
 def test_card_duty_peak_follows_the_model_dtype(arch, reduced):
     """On a card the engine and the trainer measure their duty against the
     H100 peak of the model's compute dtype: bf16 on the tensor cores for

@@ -163,19 +163,27 @@ def test_chunked_ce_loss_of_no_valid_label_is_zero():
 # --------------------------------------------------------------------------
 
 
-def _grads(jcfg, cfg, flash):
+def _grads(jcfg, cfg, flash, *, aux_weights=None, bf16_grads=False):
     jstate, params = _masters(jcfg, cfg)
     jb, batch = _jax_batch(cfg, 0)
 
     def jloss(p):
         return jax_tf.lm_loss(jax_ts.cast_params(p, jcfg.dtype), jcfg,
-                              jb["tokens"], jb["labels"])
+                              jb["tokens"], jb["labels"],
+                              aux_weights=aux_weights)
 
-    with jax_perf_flags(JaxFlags(flash_kernel=flash)):
+    with jax_perf_flags(JaxFlags(flash_kernel=flash, bf16_grads=bf16_grads)):
         jl, jg = jax.value_and_grad(jloss)(jstate.params)
-    with perf_flags(PerfFlags(flash_kernel=flash)):
-        loss, grads = ts.loss_and_grads(params, cfg, batch)
+    with perf_flags(PerfFlags(flash_kernel=flash, bf16_grads=bf16_grads)):
+        loss, grads = ts.loss_and_grads(params, cfg, batch,
+                                        aux_weights=aux_weights)
     return float(jl), _jax_paths(jg), float(loss), _paths(grads)
+
+
+def _worst_share(grads, jg):
+    """The worst over leaves of max |grad - jax grad| / max |jax grad|."""
+    return max(float(np.max(np.abs(_t(g) - jg[k])))
+               / float(np.max(np.abs(jg[k]))) for k, g in grads.items())
 
 
 @pytest.mark.parametrize("flash", [False, True])
@@ -196,6 +204,47 @@ def test_lm_loss_gradients_match_jax_float32(flash):
         assert err < 5e-3, (key, err)
         assert err <= 1e-4 * peak, (key, err, peak)
     print(f"worst |grad - jax grad| / max|jax grad| over leaves: {worst:.3e}")
+
+
+@pytest.mark.parametrize("n_layers", [1, 2])
+@pytest.mark.parametrize("aux_weights", [None, (0.01, 1e-3)])
+def test_granite_lm_loss_gradients_match_jax(aux_weights, n_layers):
+    """Reduced granite-moe-1b-a400m in float32, flash on, with and without
+    the MoE auxiliary losses: the loss within 1e-5 relative, each leaf's
+    gradient within 5e-3 and 1e-4 of its largest; the aux losses change
+    the router's gradients beyond that."""
+    jcfg, cfg = _configs(arch="granite-moe-1b-a400m", n_layers=n_layers)
+    jl, jg, loss, grads = _grads(jcfg, cfg, True, aux_weights=aux_weights)
+    assert abs(loss - jl) <= 1e-5 * abs(jl)
+    assert set(grads) == set(jg)
+    for key, g in grads.items():
+        err = float(np.max(np.abs(_t(g) - jg[key])))
+        peak = float(np.max(np.abs(jg[key])))
+        assert err < 5e-3 and err <= 1e-4 * peak, (key, err, peak)
+    if aux_weights is not None:
+        _, jg0, loss0, _ = _grads(jcfg, cfg, True)
+        assert loss > loss0
+        key = "['blocks']['0']['mlp']['router']"
+        assert float(np.max(np.abs(jg0[key] - jg[key]))) > \
+            1e-3 * float(np.max(np.abs(jg[key])))
+
+
+@pytest.mark.parametrize("remat", ["none", "full"])
+@pytest.mark.parametrize("arch", ["llsc-100m", "mamba2-370m",
+                                  "granite-moe-1b-a400m"])
+def test_bf16_grads_match_jax(arch, remat):
+    """The ``bf16_grads`` flag in float32, on both sides: every block's
+    output cotangent rounded to bf16.  Each leaf's gradient within 1e-4 of
+    its largest of the reference's under the flag; the port's gradients
+    without the flag lie beyond that, so the flag is not ignored (and
+    under remat "full" it acts in the recompute too)."""
+    jcfg, cfg = _configs(arch=arch, n_layers=2, remat=remat)
+    jl, jg, loss, grads = _grads(jcfg, cfg, True, bf16_grads=True)
+    _, _, loss0, grads0 = _grads(jcfg, cfg, True)
+    assert abs(loss - jl) <= 1e-5 * abs(jl) and loss == loss0
+    flagged, unflagged = _worst_share(grads, jg), _worst_share(grads0, jg)
+    print(f"worst share: with the flag {flagged:.3e}, without {unflagged:.3e}")
+    assert flagged <= 1e-4 < unflagged
 
 
 @pytest.mark.parametrize("flash", [False, True])
@@ -342,7 +391,8 @@ def test_lr_schedule_matches_jax():
     assert math.isclose(opt.lr_schedule(pcfg, 1), 3e-4 / 10)
 
 
-@pytest.mark.parametrize("arch", ["llsc-100m", "mamba2-370m"])
+@pytest.mark.parametrize("arch", ["llsc-100m", "mamba2-370m",
+                                  "granite-moe-1b-a400m"])
 def test_decay_mask_matches_jax(arch):
     """Over every leaf of the full-size tree (shapes only): the mask reads
     the reference's key string, so A_log, D, dt_bias and every norm scale
@@ -375,21 +425,34 @@ def test_decay_mask_matches_jax(arch):
 
 
 @pytest.mark.parametrize("remat", ["none", "full"])
-@pytest.mark.parametrize("arch", ["llsc-100m", "mamba2-370m"])
+@pytest.mark.parametrize("arch", ["llsc-100m", "mamba2-370m",
+                                  "granite-moe-1b-a400m"])
 def test_three_train_steps_match_jax(arch, remat):
     """Losses within 1e-5 relative, parameters within ``update_gaps``'
     bounds, with ``cfg.remat`` the same on both sides; an optimizer that
     does not step, or steps the wrong way, fails those bounds."""
-    jcfg, cfg = _configs(arch=arch, remat=remat)
+    _three_steps(*_configs(arch=arch, remat=remat))
+
+
+@pytest.mark.parametrize("remat", ["none", "full"])
+def test_granite_train_steps_with_aux_losses_match_jax(remat):
+    """Two stacked MoE layers, ``make_train_step(aux_weights=(0.01,
+    1e-3))`` on both sides, as the previous test."""
+    _three_steps(*_configs(arch="granite-moe-1b-a400m", remat=remat,
+                           n_layers=2), aux_weights=(0.01, 1e-3))
+
+
+def _three_steps(jcfg, cfg, aux_weights=None):
     jstate, params = _masters(jcfg, cfg)
     p0 = {k: v.clone() for k, v in _paths(params).items()}
     jb, batch = _jax_batch(cfg, 0)
     g1 = _jax_paths(jax.grad(lambda p: jax_tf.lm_loss(
-        p, jcfg, jb["tokens"], jb["labels"]))(jstate.params))
+        p, jcfg, jb["tokens"], jb["labels"], aux_weights=aux_weights))(
+            jstate.params))
     jstep = jax.jit(jax_ts.make_train_step(jcfg, jax_ts.default_opt_cfg(
-        jcfg, total_steps=3)))
+        jcfg, total_steps=3), aux_weights=aux_weights))
     ocfg = ts.default_opt_cfg(cfg, total_steps=3)
-    step_fn = ts.make_train_step(cfg, ocfg)
+    step_fn = ts.make_train_step(cfg, ocfg, aux_weights=aux_weights)
     state = ts.TrainState(params, opt.init_opt_state(params, ocfg))
     lrs = []
     for k in range(3):
@@ -445,7 +508,8 @@ def _kernel_stand_ins(monkeypatch):
     return launches
 
 
-@pytest.mark.parametrize("arch", ["llsc-100m", "mamba2-370m"])
+@pytest.mark.parametrize("arch", ["llsc-100m", "mamba2-370m",
+                                  "granite-moe-1b-a400m"])
 def test_remat_gives_the_gradients_of_none_bit_for_bit(arch, monkeypatch):
     """Two layers, the kernel routes stood in: "full" and "dots" (and the
     ``remat_dots`` flag) give the loss and the gradients of "none" bit for
@@ -468,7 +532,8 @@ def test_remat_gives_the_gradients_of_none_bit_for_bit(arch, monkeypatch):
         launches.clear()
         cfg = dataclasses.replace(base, remat=remat)
         with perf_flags(PerfFlags.parse("flash_kernel," + flags)):
-            loss, grads = ts.loss_and_grads(params, cfg, batch)
+            loss, grads = ts.loss_and_grads(params, cfg, batch,
+                                            aux_weights=(0.01, 1e-3))
         runs = 1 if remat == "none" else 2
         want = {k: n * runs * cfg.n_layers for k, n in per_block.items()}
         want["rmsnorm"] += 1
@@ -511,7 +576,8 @@ def test_remat_recompute_takes_the_forward_routes_on_another_thread():
                zip(out["grads"], tf.leaves(want)))
 
 
-@pytest.mark.parametrize("arch", ["llsc-100m", "mamba2-370m"])
+@pytest.mark.parametrize("arch", ["llsc-100m", "mamba2-370m",
+                                  "granite-moe-1b-a400m"])
 def test_remat_leaves_the_serve_paths_alone(arch, monkeypatch):
     """Prefill and decode record no graph, so ``_remat`` is never entered
     and the prefill logits are the same whatever ``cfg.remat`` says."""
@@ -622,6 +688,50 @@ def test_launch_train_mamba2_on_the_cpu(capsys):
     pub = JobRegistry.global_registry().entries()[
         "train:mamba2-370m-reduced"]
     assert 0 < pub.duty_cycle
+
+
+@pytest.mark.parametrize("remat", ["none", "full"])
+def test_launch_train_granite_on_the_cpu(remat, monkeypatch, capsys):
+    """Reduced granite-moe-1b-a400m, flash on, with the config's remat
+    ("none" in the reduced config) and with "full"; the published duty's
+    model FLOPs are those of the active parameters."""
+    from repro_torch.configs import base as configs_base
+
+    if remat == "full":
+        reduced = configs_base.reduced_config
+        monkeypatch.setattr(launch_train, "reduced_config", lambda cfg: (
+            dataclasses.replace(reduced(cfg), remat="full")))
+    rc = launch_train.main(["--arch", "granite-moe-1b-a400m", "--reduced",
+                            "--device", "cpu", "--steps", "3", "--batch",
+                            "2", "--seq", "32", "--peak-flops", "1e12",
+                            "--mem-total-gb", "16", "--flags",
+                            "flash_kernel"])
+    assert rc == 0
+    out = capsys.readouterr().out
+    losses = [float(x) for x in
+              out.split("[launch.train] losses:")[1].splitlines()[0].split()]
+    assert len(losses) == 3 and all(math.isfinite(x) for x in losses)
+    pub = JobRegistry.global_registry().entries()[
+        "train:granite-moe-1b-a400m-reduced"]
+    cfg = reduced_config("granite-moe-1b-a400m")
+    active = model_lib.count_params_analytic(cfg, True)
+    assert active < model_lib.count_params(cfg)
+    assert pub.achieved_flops == pytest.approx(
+        6 * active * 2 * 32 / pub.step_time_s)
+
+
+def test_launch_train_crash_at_0_injects_no_crash(tmp_path, capsys):
+    """0 is the reference's "no crash" (it builds the injector only if
+    ``args.crash_at``): every step runs and the launcher exits 0."""
+    rc = launch_train.main(["--reduced", "--device", "cpu", "--steps", "3",
+                            "--batch", "2", "--seq", "32", "--peak-flops",
+                            "1e12", "--mem-total-gb", "16", "--crash-at",
+                            "0", "--ckpt-dir", str(tmp_path / "ck")])
+    assert rc == 0
+    out = capsys.readouterr().out
+    assert "[launch.train] done: steps=3 " in out and "start_step=0" in out
+    assert len(out.split("[launch.train] losses:")[1].splitlines()[0]
+               .split()) == 3
 
 
 def test_launch_train_crashes_and_resumes(tmp_path, capsys):
