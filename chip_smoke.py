@@ -28,9 +28,11 @@ It imports nothing of JAX or of the JAX package.  Phases:
    one exists (device
    time from torch.profiler's kernel records, with the CUDA-event time of
    a call beside it) against the data-sheet bound: flash attention at S =
-   128 and 256, RMSNorm at llsc-100m's rows of 768 and mamba2-370m's of
-   1024, the gated norm at 4 and 320 rows of 2048, the SSD block at two
-   chunks of mamba2-370m;
+   128 and 256 (jamba's 64 query and 8 KV heads of 128 among them),
+   RMSNorm at jamba's rows of 8192, llsc-100m's of 768 and mamba2-370m's
+   of 1024, the gated norm at 4 and 256 rows of jamba's 16384 and 4 and
+   320 rows of 2048, the SSD block at jamba's chunk of 256 heads and at
+   two chunks of mamba2-370m; the gated norm refuses a row of 16385;
 4. serve llsc-100m at full width and depth in bfloat16 with
    ``flash_kernel`` on through ``ServeEngine``: 8 requests (prompts of 128
    and 256 tokens, 32 new tokens each) through 4 slots; the kernels'
@@ -115,8 +117,27 @@ It imports nothing of JAX or of the JAX package.  Phases:
 24. granite-moe-1b-a400m training in float32 on the card and on the CPU,
     as 13, at full width and 4 of its 24 layers, with the MoE auxiliary
     losses at (0.01, 1e-3);
-25. the launches of each main path (the serves of 4, 7 and 19, the train
-    runs of 11, 14 and 22), one ``{"kernels": [...]}`` line (each
+25. after a collection and ``empty_cache``, serve jamba-1.5-large-398b
+    (the hybrid: Mamba-2 layers, an attention layer of 64 query and 8 KV
+    heads of 128, 16-expert top-2 MoEs on the odd slots) at full width and
+    5 of its 72 layers (23,984,828,032 parameters, 47.97 GB in bf16, drawn
+    on the card from a CUDA generator, the init timed) in bfloat16 as 4
+    serves llsc-100m: flash 1 and SSD 4 a prefill, the gated norm 4 and
+    RMSNorm 11 a prefill or decode step;
+26. the serve of 25 under ``torch.profiler``, as 21, and one decode
+    step's device time against the HBM time of the weights it reads;
+27. float32 at full width, card against CPU within 1e-4: the model at 1
+    layer over a 128-token prefill and 8 greedy decode steps, and the
+    attention block of slot 4 alone through ``apply_block_full`` and 8
+    ``apply_block_decode`` steps on its KV cache;
+28. reduced jamba (one period of 8) in float32, card against CPU without
+    ``flash_kernel`` (its d_head of 16 is not a flash head dim): prefill and
+    decode logits, then 2 train steps with bf16 moments and aux losses, as
+    13, with no expert-route flip;
+29. ``launch.serve`` and ``launch.train`` (20 steps) of reduced jamba on
+    the card exit 0;
+30. the launches of each main path (the serves of 4, 7, 19 and 25, the
+    train runs of 11, 14 and 22), one ``{"kernels": [...]}`` line (each
     kernel's launches summed over those paths), the nvidia-smi line, and
     last the ``{"ok": true, ...}`` line.
 
@@ -330,12 +351,16 @@ def phase_kernels(torch, fa, rn, ref, hw):
         # granite-moe-1b-a400m (GQA, 16 query and 8 KV heads): the serve's
         # prefills and a train step
         (1, 16, 8, 128, 64, True), (1, 16, 8, 256, 64, True),
-        (8, 16, 8, 256, 64, True)]
+        (8, 16, 8, 256, 64, True),
+        # jamba-1.5-large-398b (64 query and 8 KV heads of 128): the serve's
+        # prefills
+        (1, 64, 8, 128, 128, True), (1, 64, 8, 256, 128, True)]
     # llsc-100m's, mamba2-370m's and granite-moe-1b-a400m's rows (serve,
-    # train step), then widths of the scalar body
+    # train step), jamba's (serve, on the scalar body), then widths of the
+    # scalar body
     rms_cases = [(32, 128), (33, 256), (7, 64), (4, 768), (256, 768),
                  (2048, 768), (4, 1024), (256, 1024), (320, 1024),
-                 (2048, 1024), (5, 100), (3, 101)]
+                 (2048, 1024), (4, 8192), (256, 8192), (5, 100), (3, 101)]
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[1]
         for B, H, Hk, S, D, causal in flash_cases:
@@ -374,19 +399,21 @@ def phase_kernels(torch, fa, rn, ref, hw):
                 "bfloat16")
     check_refusals(torch, fa, rn, randn)
 
-    # Timings at the main paths' shapes, bf16: the attention of llsc-100m's
-    # and granite-moe-1b-a400m's prefills of 128 and 256 tokens and of a
-    # train step (8 x 256), and a norm over a decode step's 4 slots (2 in 3
-    # norm launches of the serve) beside a prefill's rows and a train
-    # step's 2048, at llsc-100m's width (768) and mamba2-370m's and
-    # granite's (1024).  The kernels line keeps llsc-100m's B = 1, S = 256
-    # and 4 rows of 768.
+    # Timings at the main paths' shapes, bf16: the attention of jamba's,
+    # llsc-100m's and granite-moe-1b-a400m's prefills of 128 and 256 tokens
+    # and of a train step (8 x 256), and a norm over a decode step's 4
+    # slots (2 in 3 norm launches of the serve) beside a prefill's rows and
+    # a train step's 2048, at jamba's width (8192), llsc-100m's (768) and
+    # mamba2-370m's and granite's (1024), the scale in bf16 as the serves
+    # hold it.  The kernels line keeps llsc-100m's B = 1, S = 256 and 4
+    # rows of 768.
     F = torch.nn.functional
     rows = []
     bf16 = torch.bfloat16
-    D = 64
-    for H, Hk, B, S in ((16, 8, 8, 256), (16, 8, 1, 128), (16, 8, 1, 256),
-                        (12, 12, 8, 256), (12, 12, 1, 128), (12, 12, 1, 256)):
+    for H, Hk, B, S, D in ((64, 8, 1, 128, 128), (64, 8, 1, 256, 128),
+                           (16, 8, 8, 256, 64), (16, 8, 1, 128, 64),
+                           (16, 8, 1, 256, 64), (12, 12, 8, 256, 64),
+                           (12, 12, 1, 128, 64), (12, 12, 1, 256, 64)):
         q = randn(B, S, H, D, dtype=bf16)
         k, v = (randn(B, S, Hk, D, dtype=bf16) for _ in range(2))
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -407,7 +434,8 @@ def phase_kernels(torch, fa, rn, ref, hw):
                      max_abs_err=errs["flash_attention"][
                          ("bfloat16", 1, 12, 256, 64, True)],
                      bound_ms=bound * 1e3, bound_by=by, **t))
-    for d, nrows_list in ((1024, (2048, 320, 4)), (768, (2048, 256, 4))):
+    for d, nrows_list in ((8192, (256, 4)), (1024, (2048, 320, 4)),
+                          (768, (2048, 256, 4))):
         for nrows in nrows_list:
             x = randn(nrows, d, dtype=bf16)
             s = (randn(d, dtype=torch.float32) * 0.1 + 1.0).to(bf16)
@@ -444,9 +472,13 @@ def phase_mamba_kernels(torch, rn, ssd, ref, hw):
                 randn(N, l, g, n, dtype=dtype))
 
     errs = {}
-    # the test sweep, then mamba2-370m's decode (4 slots) and prefill rows
+    # the test sweep, jamba's decode (4 slots) and prefill rows of 16384
+    # (the vector body at 32 and 16 warps a row in fp32 and bf16) and a
+    # wide row of no whole number of vectors (the scalar body at 1024
+    # threads a row), then mamba2-370m's decode and prefill rows
     gated_cases = [(dtype, shape) for dtype in (torch.float32, bf16)
-                   for shape in ((4, 16, 128), (33, 256))]
+                   for shape in ((4, 16, 128), (33, 256), (4, 16384),
+                                 (256, 16384), (3, 9999))]
     gated_cases += [(bf16, (4, 2048)), (bf16, (320, 2048)),
                     (bf16, (2048, 2048))]     # a mamba2-370m train step
     for dtype, shape in gated_cases:
@@ -456,38 +488,53 @@ def phase_mamba_kernels(torch, rn, ssd, ref, hw):
         errs[("gated", dn, shape)] = compare(
             f"gated_rmsnorm {dn} {shape}", rn.gated_rmsnorm(y, z, s),
             ref.gated_rmsnorm_ref(y, z, s), dn)
-    # the model's gate: a strided slice of the input projection
-    proj = randn(320, 2 * 2048 + 2 * 128 + 32, dtype=bf16)
-    y = randn(320, 2048, dtype=bf16)
-    s = torch.ones(2048, device=dev, dtype=bf16)
-    compare(f"gated_rmsnorm bfloat16 (320, 2048) gate row-stride "
-            f"{proj.stride(0)}", rn.gated_rmsnorm(y, proj[:, :2048], s),
-            ref.gated_rmsnorm_ref(y, proj[:, :2048], s), "bfloat16")
+    # the models' gates: strided slices of the input projection, whose rows
+    # are 2 d_inner + 2 g n + h elements apart (mamba2-370m's 4384, jamba's
+    # 33056), in bf16 and, for jamba, fp32
+    for dtype, rows, d, width in ((bf16, 320, 2048, 2 * 2048 + 2 * 128 + 32),
+                                  (bf16, 256, 16384, 2 * 16384 + 2 * 16 + 256),
+                                  (torch.float32, 256, 16384,
+                                   2 * 16384 + 2 * 16 + 256)):
+        dn = str(dtype).split(".")[1]
+        proj = randn(rows, width, dtype=dtype)
+        y = randn(rows, d, dtype=dtype)
+        s = (randn(d) * 0.1 + 1.0).to(dtype)
+        errs[("gated strided", dn, d)] = compare(
+            f"gated_rmsnorm {dn} ({rows}, {d}) gate row-stride "
+            f"{proj.stride(0)}", rn.gated_rmsnorm(y, proj[:, :d], s),
+            ref.gated_rmsnorm_ref(y, proj[:, :d], s), dn)
     # rows one element off 16-byte alignment take the scalar body
     for dtype in (torch.float32, bf16):
         dn = str(dtype).split(".")[1]
-        y = randn(4 * 2048 + 1, dtype=dtype)[1:].view(4, 2048)
-        z = randn(4, 2048, dtype=dtype)
-        s = (randn(2048) * 0.1 + 1.0).to(dtype)
-        compare(f"gated_rmsnorm {dn} (4, 2048), y at an odd element offset",
-                rn.gated_rmsnorm(y, z, s), ref.gated_rmsnorm_ref(y, z, s), dn)
+        for d in (2048, 16384):
+            y = randn(4 * d + 1, dtype=dtype)[1:].view(4, d)
+            z = randn(4, d, dtype=dtype)
+            s = (randn(d) * 0.1 + 1.0).to(dtype)
+            compare(f"gated_rmsnorm {dn} (4, {d}), y at an odd element "
+                    "offset", rn.gated_rmsnorm(y, z, s),
+                    ref.gated_rmsnorm_ref(y, z, s), dn)
     # bf16 y, z with a float32 scale: vector body, then scalar body
-    for rows, off in ((4, 0), (320, 0), (4, 1)):
-        y = randn(rows * 2048 + off, dtype=bf16)[off:].view(rows, 2048)
-        z = randn(rows, 2048, dtype=bf16)
-        s = randn(2048) * 0.1 + 1.0
-        compare(f"gated_rmsnorm bfloat16 ({rows}, 2048) float32 scale, "
+    for rows, d, off in ((4, 2048, 0), (320, 2048, 0), (4, 2048, 1),
+                         (4, 16384, 0), (256, 16384, 0), (4, 16384, 1)):
+        y = randn(rows * d + off, dtype=bf16)[off:].view(rows, d)
+        z = randn(rows, d, dtype=bf16)
+        s = randn(d) * 0.1 + 1.0
+        compare(f"gated_rmsnorm bfloat16 ({rows}, {d}) float32 scale, "
                 f"element offset {off}", rn.gated_rmsnorm(y, z, s),
                 ref.gated_rmsnorm_ref(y, z, s), "bfloat16")
+    raises(lambda: rn.gated_rmsnorm(*[randn(2, 16385)] * 2, randn(16385)),
+           ValueError, "at most 16384")
     # the test sweep (N, l, h, p, g, n), ragged chunks (40: one key tile;
     # 200 and 100: several, the last partial), p = 128, an odd number of
-    # heads a group (3: one head a block), then full width: the two
-    # 256-token chunks of a 320-token mamba2-370m prefill
+    # heads a group (3: one head a block), jamba's chunk of 256 (256 heads
+    # of 64, state 16), then full width: the two 256-token chunks of a
+    # 320-token mamba2-370m prefill
     ssd_cases = [(dtype, case) for dtype in (torch.float32, bf16)
                  for case in ((1, 32, 4, 16, 1, 8), (2, 64, 8, 32, 2, 16),
                               (1, 16, 2, 8, 2, 4), (3, 40, 4, 64, 1, 128),
                               (1, 200, 4, 128, 1, 64),
-                              (2, 100, 6, 64, 2, 128))]
+                              (2, 100, 6, 64, 2, 128),
+                              (1, 256, 256, 64, 1, 16))]
     ssd_cases.append((bf16, (2, 256, 32, 64, 1, 128)))
     for dtype, case in ssd_cases:
         dn = str(dtype).split(".")[1]
@@ -513,14 +560,17 @@ def phase_mamba_kernels(torch, rn, ssd, ref, hw):
             ref.ssd_intra_chunk_ref(x, dt_, A, B, C), "bfloat16")
 
     rows = []
-    # a train step's 8 x 256 rows; a 320-token prefill; a decode step's slots
-    for nrows in (2048, 320, 4):
-        y, z = randn(nrows, 2048, dtype=bf16), randn(nrows, 2048, dtype=bf16)
-        s = (randn(2048) * 0.1 + 1.0).to(bf16)
-        n_bytes = 3 * nrows * 2048 * 2 + 2048 * 2
-        flops = 8 * nrows * 2048     # silu (exp, add, div), *y, h*h, +, *r, *s
+    # jamba's 256-token prefill and decode step (rows of 16384); then
+    # mamba2-370m's train step's 8 x 256 rows, a 320-token prefill and a
+    # decode step's slots; the scale in bf16, as the serves hold it
+    for d, nrows in ((16384, 256), (16384, 4), (2048, 2048), (2048, 320),
+                     (2048, 4)):
+        y, z = randn(nrows, d, dtype=bf16), randn(nrows, d, dtype=bf16)
+        s = (randn(d) * 0.1 + 1.0).to(bf16)
+        n_bytes = 3 * nrows * d * 2 + d * 2
+        flops = 8 * nrows * d     # silu (exp, add, div), *y, h*h, +, *r, *s
         bound, by = hw.bound_s(n_bytes, flops, bf16)
-        t = timed(f"gated_rmsnorm bf16 rows{nrows} D2048 (no library call)",
+        t = timed(f"gated_rmsnorm bf16 rows{nrows} D{d} (no library call)",
                   dict(ms=lambda: rn.gated_rmsnorm(y, z, s),
                        plain_ms=lambda: ref.gated_rmsnorm_ref(y, z, s)))
         print(f"  bound {bound * 1e3:.6f} ms ({by}: {n_bytes} B, {flops} FLOP)")
@@ -548,6 +598,28 @@ def phase_mamba_kernels(torch, rn, ssd, ref, hw):
             plain_ms=lambda: ref.ssd_intra_chunk_ref(
                 x, dt_, A, B, C, out_dtype=torch.float32)))
 
+    # jamba's prefill chunk of 256 tokens (256 heads of 64, state 16), as
+    # the model hands it over: x, B, C views of one conv output (row stride
+    # 16416; B at 16384, C at 16400, 16-byte aligned: the tensor-core body)
+    case = (1, 256, 256, 64, 1, 16)
+    N, l, h, p, g, n = case
+    xbc = randn(N, l, h * p + 2 * g * n, dtype=bf16)
+    jx = (xbc[..., :h * p].unflatten(-1, (h, p)), F.softplus(randn(N, l, h)),
+          -torch.exp(randn(h) * 0.3),
+          xbc[..., h * p:h * p + g * n].unflatten(-1, (g, n)),
+          xbc[..., h * p + g * n:].unflatten(-1, (g, n)))
+    got = ssd.ssd_intra_chunk(*jx, out_dtype=torch.float32)
+    check(ssd.heads_per_block == 2, "jamba's views missed the tensor-core "
+          "body")
+    errs[("ssd jamba views",)] = compare(
+        f"ssd_intra_chunk bf16 in, fp32 out, N,l,h,p,g,n={case}, x/B/C views "
+        f"of one buffer (row stride {xbc.stride(1)}) ({ssd_body(ssd)})", got,
+        ref.ssd_intra_chunk_ref(*jx, out_dtype=torch.float32), "float32",
+        tol=SSD_TOL)
+    n_bytes, flops, bound, by = ssd_bound(*case)
+    ssd_timed(*jx, f"ssd_intra_chunk bf16 in, fp32 out, N{N} l{l} h{h} p{p} "
+              f"g{g} n{n} (jamba's prefill chunk, the model's views)")
+    print(f"  bound {bound * 1e3:.6f} ms ({by}: {n_bytes} B, {flops} FLOP)")
     # a mamba2-370m train step: 8 sequences of one chunk of 256
     case = (8, 256, 32, 64, 1, 128)
     xs8 = ssd_inputs(*case, bf16)
@@ -765,12 +837,13 @@ def _to(tree, dev):
 
 
 def card_vs_cpu(torch, np, model_lib, perf, time_axis, cfg, S,
-                scalar_norm=False):
-    """Phases 5 and 8: float32 logits of one seed's weights on the card and
-    on the CPU over an S-token prefill and 8 greedy decode steps, each side
-    choosing its own tokens.  With ``scalar_norm`` the card runs once more
-    with every RMSNorm input copied one element off 16-byte alignment, so
-    that the norm takes its scalar body instead of the vector one."""
+                scalar_norm=False, flash=True):
+    """Phases 5, 8, 20, 27 and 28: float32 logits of one seed's weights on
+    the card and on the CPU over an S-token prefill and 8 greedy decode
+    steps, each side choosing its own tokens, with ``flash_kernel`` as
+    ``flash`` says.  With ``scalar_norm`` the card runs once more with
+    every RMSNorm input copied one element off 16-byte alignment, so that
+    the norm takes its scalar body instead of the vector one."""
     from repro_torch.kernels import rmsnorm as rn
 
     cfg32 = dataclasses.replace(cfg, dtype="float32")
@@ -783,7 +856,7 @@ def card_vs_cpu(torch, np, model_lib, perf, time_axis, cfg, S,
             np.random.default_rng(2).integers(0, cfg.vocab_size, (1, S)),
             device=dev)
         logits_all = []
-        with perf.perf_flags(perf.PerfFlags(flash_kernel=True)):
+        with perf.perf_flags(perf.PerfFlags(flash_kernel=flash)):
             logits, cache = model_lib.prefill(p, cfg32, tokens)
             # room for 8 more tokens on the time axis of attention caches
             cache = {part: {key: {n: torch.nn.functional.pad(
@@ -1080,21 +1153,53 @@ def train_profile(torch, trainer, state, step, perf, kernels, backwards):
         print(f"  {us / 1e3:9.3f} ms  {key[:100]}")
 
 
+def layer_slots(cfg):
+    """(mixer, mlp kind) of the layers of ``cfg``'s stacked periods, and of
+    its remainder layers, in order."""
+    slots = list(zip(cfg.layer_pattern, cfg.mlp_pattern))
+    return slots * cfg.n_periods, slots[:cfg.n_remainder]
+
+
+def block_launches(cfg, slots, *, prefill):
+    """The hand-written kernels one pass over the layers ``slots`` launches
+    with ``flash_kernel``: a prefill (or a train step's forward) runs flash
+    for an attention layer and the gated norm and the SSD block for a
+    Mamba-2 layer, a decode step the gated norm only (decode attention and
+    the SSD recurrence are plain, as the reference's); every layer ln1, and
+    ln2 where it has an FFN (a MoE, or an MLP of d_ff > 0)."""
+    out = dict.fromkeys(KERNEL_NAMES, 0)
+    for kind, mlp_kind in slots:
+        if kind == "ssm":
+            out["gated_rmsnorm"] += 1
+            out["ssd_intra_chunk"] += int(prefill)
+        else:
+            out["flash_attention"] += int(prefill)
+        out["rmsnorm"] += 2 if mlp_kind == "moe" or cfg.d_ff > 0 else 1
+    return out
+
+
+def serve_launches(cfg, n_pre, n_dec):
+    """The launches of a serve of ``n_pre`` prefills and ``n_dec`` decode
+    steps: every layer's, and the final norm once a prefill or step."""
+    layers = sum(layer_slots(cfg), [])
+    pre = block_launches(cfg, layers, prefill=True)
+    dec = block_launches(cfg, layers, prefill=False)
+    return {k: pre[k] * n_pre + dec[k] * n_dec
+            + (n_pre + n_dec) * (k == "rmsnorm") for k in pre}
+
+
 def step_launches(cfg):
     """The hand-written kernels' launches in one train step of ``cfg`` (with
     ``flash_kernel``): each block's forward kernels run once in the
     forward and, under a ``cfg.remat`` other than "none", once more in the
-    backward's recompute of its period; the final norm lies outside the
-    periods and runs once.  The backwards are the plain versions'."""
+    backward's recompute of its period; the remainder layers and the final
+    norm lie outside the periods and run once.  The backwards are the
+    plain versions'."""
     runs = 1 if cfg.remat == "none" else 2
-    n = cfg.n_layers
-    # ln1, and ln2 where there is an FFN: a MoE, or an MLP of d_ff > 0
-    norms = 2 if cfg.d_ff or "moe" in cfg.mlp_pattern else 1
-    if cfg.family == "ssm":
-        return {"flash_attention": 0, "rmsnorm": runs * norms * n + 1,
-                "gated_rmsnorm": runs * n, "ssd_intra_chunk": runs * n}
-    return {"flash_attention": runs * n, "rmsnorm": runs * norms * n + 1,
-            "gated_rmsnorm": 0, "ssd_intra_chunk": 0}
+    stacked, rem = layer_slots(cfg)
+    a = block_launches(cfg, stacked, prefill=True)
+    b = block_launches(cfg, rem, prefill=True)
+    return {k: runs * a[k] + b[k] + (k == "rmsnorm") for k in a}
 
 
 def phase_train(torch, np, counters, registry, perf, smi, arch, flags=(),
@@ -1301,12 +1406,13 @@ def recorded_routes():
               f"{flips} chose other expert ids")
 
 
-def train_card_vs_cpu(torch, perf, cfg, aux_weights=None):
-    """Phases 13, 16 and 24: ``cfg`` at full width in float32 (TF32 off),
-    under its ``remat`` ("full"), the same float32 masters from one seed on
-    the card and on the CPU, the same batch (1 x 256 tokens) for 2
-    ``make_train_step`` steps (with the MoE auxiliary losses at
-    ``aux_weights``), with ``flash_kernel``.  Losses within 1e-4 relative;
+def train_card_vs_cpu(torch, perf, cfg, aux_weights=None, flash=True):
+    """Phases 13, 16, 24 and 28: ``cfg`` in float32 (TF32 off), under its
+    ``remat``, the same float32 masters from one seed on the card and on
+    the CPU, the same batch (1 x 256 tokens) for 2 ``make_train_step``
+    steps (with the MoE auxiliary losses at ``aux_weights``), with
+    ``flash_kernel`` as ``flash`` says, and AdamW's moments in the config's
+    ``opt_dtype``.  Losses within 1e-4 relative;
     step-1 gradients within 5e-3 absolute (the reference's gradient
     tolerance) and each leaf's within GRAD_RTOL of its largest; parameters
     after 2 steps within ``update_gaps``' two bounds."""
@@ -1315,13 +1421,14 @@ def train_card_vs_cpu(torch, perf, cfg, aux_weights=None):
     from repro_torch.train.data import DataConfig, SyntheticLM
 
     print(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-          f"remat {cfg.remat!r}")
+          f"remat {cfg.remat!r}, moments {cfg.opt_dtype}")
     ocfg = ts.default_opt_cfg(cfg, total_steps=2)
     batch = SyntheticLM(DataConfig(cfg.vocab_size, 256, 1, 0)).batch(0)
     masters = ts.init_train_state(cfg, torch.Generator().manual_seed(0),
                                   ocfg, device="cpu").params
     result = {}
-    with perf.perf_flags(perf.PerfFlags(flash_kernel=True)):
+    moment = getattr(torch, cfg.opt_dtype)
+    with perf.perf_flags(perf.PerfFlags(flash_kernel=flash)):
         for dev in ("cpu", "cuda"):
             t0 = time.perf_counter()
             params = _to(masters, dev)
@@ -1335,6 +1442,8 @@ def train_card_vs_cpu(torch, perf, cfg, aux_weights=None):
                 state, met = step_fn(state, b)
                 losses.append(float(met["loss"]))
                 lrs.append(met["lr"])
+            check(all(t.dtype == moment for t in flat(state.opt.m).values()),
+                  f"the moments are not {cfg.opt_dtype}")
             result[dev] = (flat(_to(grads, "cpu")), losses, lrs,
                            flat(_to(state.params, "cpu")))
             print(f"  {dev}: gradients and 2 steps in "
@@ -1568,10 +1677,7 @@ def phase_granite_serve(torch, np, model_lib, engine, counters, perf,
     phase_serve(torch, cfg, params, engine, counters, perf, **serve)  # warm-up
     eng, stats, counts = phase_serve(torch, cfg, params, engine, counters,
                                      perf, **serve)
-    n_pre, n_dec = len(eng.prefill_s), stats["steps"]
-    expect = {"flash_attention": cfg.n_layers * n_pre,
-              "rmsnorm": (2 * cfg.n_layers + 1) * (n_pre + n_dec),
-              "gated_rmsnorm": 0, "ssd_intra_chunk": 0}
+    expect = serve_launches(cfg, len(eng.prefill_s), stats["steps"])
     report_serve(torch, np, eng, stats, counts, expect, cfg, registry)
     active = model_lib.count_params_analytic(cfg, active_only=True)
     check(eng._flops_per_token == 2.0 * active,
@@ -1593,6 +1699,190 @@ def phase_granite_serve(torch, np, model_lib, engine, counters, perf,
                                 profile=True, **serve), serve_wall,
                    "phase 19", ("flash_attention", "rmsnorm"), MOE_PARTS)
     return counts, cfg
+
+
+JAMBA = "jamba-1.5-large-398b"
+JAMBA_SERVE_LAYERS = 5      # slots 0-4 of the period: every kind of layer
+
+
+def phase_jamba_serve(torch, np, model_lib, engine, counters, perf, hw,
+                      registry, smi):
+    """Phases 25-26.  25: from the memory the earlier phases leave (printed
+    after a collection and ``empty_cache``), draw jamba-1.5-large-398b's
+    bf16 weights at full width and 5 layers (4 Mamba-2 layers and the
+    attention layer of slot 4; SwiGLU FFNs on slots 0, 2, 4 and 16-expert
+    MoEs on slots 1, 3; 23,984,828,032 parameters, 7,073,394,304 active) on
+    the card from a CUDA generator (the init timed apart), and serve it as
+    phase 4 serves llsc-100m, with a warm-up: the launches are
+    ``serve_launches``' (flash 1 a prefill, the SSD block 4 a prefill, the
+    gated norm 4 and RMSNorm 11 a prefill or decode step), every request
+    completes, the duty counts the active parameters.  26: the serve under
+    torch.profiler, with the MoE's parts, and one decode step's device
+    time against its bound: the bytes of the weights it reads (every leaf
+    but the embedding table, of which it reads 4 rows) at the HBM rate.
+    Returns the serve's launch counts."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import leaves
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"memory allocated at the start of the phase: "
+          f"{torch.cuda.memory_allocated() / 2 ** 20:.1f} MiB")
+    cfg = dataclasses.replace(get_config(JAMBA), n_layers=JAMBA_SERVE_LAYERS)
+    total = model_lib.count_params(cfg)
+    active = model_lib.count_params_analytic(cfg, active_only=True)
+    check((total, active) == (23_984_828_032, 7_073_394_304),
+          f"jamba at 5 layers counts {total} parameters, {active} active")
+    t0 = time.perf_counter()
+    params = model_lib.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    torch.cuda.synchronize()
+    n_bytes = sum(t.numel() * t.element_size() for t in leaves(params))
+    print(f"init of {total} parameters ({active} active; {cfg.n_periods} "
+          f"stacked periods, {cfg.n_remainder} remainder layers) on the card "
+          f"from a CUDA generator: {time.perf_counter() - t0:.1f} s, "
+          f"{n_bytes} bytes, {torch.cuda.memory_allocated() / 2 ** 20:.1f} "
+          "MiB allocated")
+    serve = dict(lens=(128, 256), max_seq=512)
+    phase_serve(torch, cfg, params, engine, counters, perf, **serve)  # warm-up
+    eng, stats, counts = phase_serve(torch, cfg, params, engine, counters,
+                                     perf, **serve)
+    expect = serve_launches(cfg, len(eng.prefill_s), stats["steps"])
+    print(f"[{smi}] jamba-1.5-large-398b, {cfg.n_layers} layers, full width:")
+    report_serve(torch, np, eng, stats, counts, expect, cfg, registry)
+    check(eng._flops_per_token == 2.0 * active,
+          "the engine's duty does not count the active parameters")
+    serve_wall = stats["wall_s"]
+    del eng
+
+    print(f"=== 26. the serve of phase 25 under torch.profiler [{smi}] ===")
+    report_profile(*phase_serve(torch, cfg, params, engine, counters, perf,
+                                profile=True, **serve), serve_wall,
+                   "phase 25", tuple(KERNEL_NAMES), MOE_PARTS)
+    caches = model_lib.init_cache(cfg, 4, serve["max_seq"], device="cuda")
+    tok = torch.zeros(4, 1, dtype=torch.int64, device="cuda")
+    lens = torch.full((4,), 300, device="cuda")
+    # the device time of 10 decode steps in one trace, over 10: the count of
+    # device activities a step varies, so device_ms's check does not apply
+    for _ in range(3):
+        model_lib.decode_step(params, cfg, tok, caches, lens)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            model_lib.decode_step(params, cfg, tok, caches, lens)
+        torch.cuda.synchronize()
+    acts = device_activities(prof)
+    ms, n = sum(a[1] for a in acts) / 10 / 1e3, len(acts) / 10
+    emb = params["embed"]
+    read = n_bytes - emb.numel() * emb.element_size() \
+        + 4 * emb.shape[1] * emb.element_size()
+    print(f"[{smi}] one decode step of 4 slots: {ms:.3f} ms device in "
+          f"{n:g} device activities; the weights it reads, {read} bytes, take "
+          f"{read / hw.HBM_BW * 1e3:.3f} ms at {hw.HBM_BW / 1e12:.2f} TB/s "
+          f"({100 * read / hw.HBM_BW * 1e3 / ms:.1f}% of the bound)")
+    return counts
+
+
+def attention_block_vs_cpu(torch, perf, cfg):
+    """Phase 27 (b): the attention block of ``cfg``'s first attention slot
+    (attention and its FFN) alone at full width in float32, on the card and
+    on the CPU from the same weights and inputs: ``apply_block_full`` over
+    128 tokens (flash on), then 8 ``apply_block_decode`` steps on the KV
+    cache it made, each output within 1e-4."""
+    from repro_torch.models import transformer as tf
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    slot = cfg.layer_pattern.index("attn")
+    mlp_kind = cfg.mlp_pattern[slot]
+    gen = torch.Generator().manual_seed(0)
+
+    def make(leaf):
+        out = torch.empty(leaf.shape, dtype=torch.float32)
+        if leaf.std is None:
+            out.copy_(leaf.fixed(leaf.shape))
+        else:
+            tf._draw(out, leaf.std, gen, out.numel())
+        return out
+
+    bp = tf._tree_map(make, tf._block_spec(cfg32, "attn", mlp_kind))
+    S, steps = 128, 8
+    draw = torch.Generator().manual_seed(1)
+    x = torch.randn(1, S, cfg.d_model, generator=draw)
+    xs = [torch.randn(1, 1, cfg.d_model, generator=draw)
+          for _ in range(steps)]
+    out = {}
+    with perf.perf_flags(perf.PerfFlags(flash_kernel=True)):
+        for dev in ("cpu", "cuda"):
+            p = _to(bp, dev)
+            y, cache, _ = tf.apply_block_full(
+                p, x.to(dev), cfg32, "attn", mlp_kind,
+                torch.arange(S, device=dev))
+            cache = {n: torch.nn.functional.pad(t, (0, 0, 0, 0, 0, steps))
+                     for n, t in cache.items()}
+            ys = [y.cpu()]
+            for i in range(steps):
+                ys.append(tf.apply_block_decode(
+                    p, xs[i].to(dev), cfg32, "attn", mlp_kind, cache,
+                    S + i).cpu())
+            out[dev] = ys
+    errs = [float((a - b).abs().max()) for a, b in zip(out["cuda"],
+                                                       out["cpu"])]
+    print(f"  slot {slot} (attention, {mlp_kind}): "
+          f"{sum(t.numel() for t in tf.leaves(bp))} parameters; max |card - "
+          f"cpu| of the block's output: prefill {errs[0]:.3e}, decode steps "
+          + ", ".join(f"{e:.3e}" for e in errs[1:]) + " (tol 1e-4)")
+    check(all(torch.isfinite(t).all() for t in out["cuda"]),
+          "non-finite block output on the card")
+    check(max(errs) <= 1e-4, "the attention block differs between card and "
+          "CPU")
+
+
+def phase_jamba_checks(torch, np, model_lib, engine, perf):
+    """Phases 27-29.  27: float32 at full width, card against CPU within
+    1e-4: (a) the whole model at 1 layer (a Mamba-2 layer and a SwiGLU FFN)
+    over a 128-token prefill and 8 greedy decode steps, the same tokens;
+    (b) the attention block alone (``attention_block_vs_cpu``).  28:
+    reduced jamba (one period of 8, d_head 16, which the flash kernel does
+    not take, so without ``flash_kernel``) in float32, card against CPU:
+    prefill and decode logits, then 2 train steps with bf16 moments and
+    the MoE auxiliary losses, with no expert-route flip.  29: the entry
+    points on the card: ``launch.serve`` and ``launch.train`` (20 steps)
+    of reduced jamba exit 0."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.launch import train as launch_train
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(JAMBA)
+    print("=== 27. card vs CPU, jamba-1.5-large-398b full width, float32: "
+          "(a) the model at 1 layer, (b) the attention block of slot 4 ===")
+    card_vs_cpu(torch, np, model_lib, perf, engine.TIME_AXIS_LEAVES,
+                dataclasses.replace(cfg, n_layers=1), 128)
+    attention_block_vs_cpu(torch, perf, cfg)
+
+    print("=== 28. card vs CPU, reduced jamba-1.5-large-398b (one period of "
+          "8), float32, no flash_kernel: serve logits, then training with "
+          "bf16 moments and aux losses (0.01, 1e-3) ===")
+    small = reduced_config(cfg)
+    with recorded_routes() as routes:
+        card_vs_cpu(torch, np, model_lib, perf, engine.TIME_AXIS_LEAVES,
+                    small, 64, flash=False)
+    check(routes["flips"] == 0, f"{routes['flips']} expert routes differ")
+    with recorded_routes() as routes:
+        train_card_vs_cpu(torch, perf, small, aux_weights=(0.01, 1e-3),
+                          flash=False)
+    check(routes["flips"] == 0, f"{routes['flips']} expert routes differ")
+
+    print("=== 29. the entry points on the card: launch.serve and "
+          "launch.train --arch jamba-1.5-large-398b --reduced ===")
+    rc = launch_serve.main(["--arch", JAMBA, "--reduced"])
+    check(rc == 0, f"launch.serve exited {rc}")
+    rc = launch_train.main(["--arch", JAMBA, "--reduced", "--steps", "20"])
+    check(rc == 0, f"launch.train exited {rc}")
 
 
 def main() -> int:
@@ -1666,10 +1956,7 @@ def main() -> int:
     phase_serve(torch, cfg, params, engine, counters, perf, **serve)  # warm-up
     eng, stats, counts = phase_serve(torch, cfg, params, engine, counters,
                                      perf, **serve)
-    n_pre, n_dec = len(eng.prefill_s), stats["steps"]
-    expect = {"flash_attention": cfg.n_layers * n_pre,
-              "rmsnorm": (2 * cfg.n_layers + 1) * (n_pre + n_dec),
-              "gated_rmsnorm": 0, "ssd_intra_chunk": 0}
+    expect = serve_launches(cfg, len(eng.prefill_s), stats["steps"])
     report_serve(torch, np, eng, stats, counts, expect, cfg, registry)
     serve_llsc = counts
     llsc_wall = stats["wall_s"]
@@ -1692,12 +1979,8 @@ def main() -> int:
     phase_serve(torch, cfg, params, engine, counters, perf, **serve)  # warm-up
     eng, stats, counts = phase_serve(torch, cfg, params, engine, counters,
                                      perf, **serve)
-    n_pre, n_dec = len(eng.prefill_s), stats["steps"]
-    norms = cfg.n_layers * (2 if cfg.d_ff else 1) + 1   # 49: no ln2, d_ff 0
-    expect = {"flash_attention": 0,
-              "rmsnorm": norms * (n_pre + n_dec),
-              "gated_rmsnorm": cfg.n_layers * (n_pre + n_dec),
-              "ssd_intra_chunk": cfg.n_layers * n_pre}
+    # 49 norms a pass: no ln2, d_ff 0
+    expect = serve_launches(cfg, len(eng.prefill_s), stats["steps"])
     report_serve(torch, np, eng, stats, counts, expect, cfg, registry)
     serve_mamba = counts
     mamba_wall = stats["wall_s"]
@@ -1764,7 +2047,14 @@ def main() -> int:
         train_card_vs_cpu(torch, perf, dataclasses.replace(
             cfg, dtype="float32", n_layers=4), aux_weights=(0.01, 1e-3))
 
-    print(f"=== 25. summary (whole run {time.perf_counter() - t_all:.1f} s) ===")
+    print(f"=== 25. serve jamba-1.5-large-398b, full width, "
+          f"{JAMBA_SERVE_LAYERS} layers, bf16, flash_kernel [{smi}] ===")
+    by_path[f"serve {JAMBA}, {JAMBA_SERVE_LAYERS} layers"] = \
+        phase_jamba_serve(torch, np, model_lib, engine, counters, perf, hw,
+                          registry, smi)
+    phase_jamba_checks(torch, np, model_lib, engine, perf)
+
+    print(f"=== 30. summary (whole run {time.perf_counter() - t_all:.1f} s) ===")
     for path, counts in by_path.items():
         print(f"launches, {path}: {counts}")
     for row in rows:

@@ -40,18 +40,28 @@
 //     and per-warp partial sums, and 16-byte stores.  A row gets up to 8
 //     warps of one vector a thread before a thread takes a second, the
 //     shortest path for each thread: d = 2048 in bf16 (mamba2-370m) is 8
-//     warps of one vector each.  Its gate z is a strided slice of the
-//     input projection in the model, so y and z each take a row stride
+//     warps of one vector each.  Past 1024 vectors a row takes 16 warps of
+//     4 vectors (jamba's d = 16384 in bf16: 2048 vectors, 512 threads),
+//     and past 2048, 32 warps of 4 (d = 16384 in fp32: 4096 vectors, the
+//     whole 1024 threads of a block), so every row up to GATED_MAX_WIDTH
+//     stays in registers.  (Only fp32 rows reach 32 warps: in bf16 with an
+//     fp32 scale that instance would spill 76 bytes under its 64-register
+//     bound.)  Its gate z is a strided slice of the input
+//     projection in the model, so y and z each take a row stride
 //     (elements between rows; the last dimension is contiguous); the
-//     model's gate has a row stride of 4384 elements, a whole number of
-//     vectors, so it takes this body.
+//     models' gates have row strides of 4384 (mamba2-370m) and 33056
+//     (jamba) elements, whole numbers of vectors, so they take this body.
 //   * The gated norm's scalar body (`gated_rmsnorm_kernel`), for widths
 //     that are not a whole number of vectors and rows whose y or z pointer
-//     or row stride is not 16-byte aligned: a block of 256 threads a row,
-//     each holding up to 16 elements of y and z loaded with every load
-//     issued first (a warp walking a row of 2048 waited on one memory
-//     latency per element, 15 us a launch).  Rows of up to 4096 elements.
-//     It took 3.9 / 5.2 us at 4 / 320 rows of 2048 on an H100.
+//     or row stride is not 16-byte aligned: a block of 256 threads a row
+//     up to 4096 elements, 1024 threads up to 16384, each holding up to 16
+//     elements of y and z loaded with every load issued first (a warp
+//     walking a row of 2048 waited on one memory latency per element, 15
+//     us a launch).  It took 3.9 / 5.2 us at 4 / 320 rows of 2048 on an
+//     H100.
+//   * GATED_MAX_WIDTH (16384, 1024 threads x 16 values) is the widest row
+//     either gated body holds in registers: the widest gate of the
+//     repo's models (jamba's d_inner).  A wider row is refused.
 // Statistics are fp32, and x * r * scale is computed in fp32 before the
 // cast back, in the reference's order (repro/models/layers.py:34,
 // repro/models/ssm.py:181).
@@ -74,8 +84,9 @@ namespace {
 constexpr int WARPS = 4;                // scalar body: rows per block
 constexpr int VEC_MAX_V = 4;            // vector bodies: vectors a thread holds
 constexpr int VEC_MAX_W = 8;            // and warps a row: d <= 4096 in bf16
-constexpr int GATED_THREADS = 256;      // gated scalar body: a block a row
-constexpr int GATED_MAX_V = 16;         // values a thread holds: d <= 4096
+constexpr int GATED_VEC_MAX_W = 32;     // the gated one's: d <= 16384 in fp32
+constexpr int GATED_MAX_V = 16;         // gated scalar body: values a thread
+constexpr int GATED_MAX_WIDTH = 1024 * GATED_MAX_V;   // d <= 16384
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -321,9 +332,9 @@ gated_rmsnorm_vec_kernel(const T* __restrict__ y, const T* __restrict__ z,
 }
 
 // The gated norm's scalar body, for rows the vector body does not take:
-// a block of 256 threads a row, up to 16 values a thread.
-template <typename T, typename S>
-__global__ void __launch_bounds__(GATED_THREADS)
+// a block of THREADS threads a row, up to 16 values a thread.
+template <typename T, typename S, int THREADS>
+__global__ void __launch_bounds__(THREADS)
 gated_rmsnorm_kernel(const T* __restrict__ y, const T* __restrict__ z,
                      const S* __restrict__ scale, T* __restrict__ out,
                      int d, long long y_stride, long long z_stride,
@@ -334,7 +345,7 @@ gated_rmsnorm_kernel(const T* __restrict__ y, const T* __restrict__ z,
   float hv[GATED_MAX_V], zv[GATED_MAX_V];
 #pragma unroll
   for (int v = 0; v < GATED_MAX_V; ++v) {  // every load issued first
-    const int i = threadIdx.x + v * GATED_THREADS;
+    const int i = threadIdx.x + v * THREADS;
     hv[v] = i < d ? to_f32(yr[i]) : 0.f;
     zv[v] = i < d ? to_f32(zr[i]) : 0.f;
   }
@@ -344,12 +355,12 @@ gated_rmsnorm_kernel(const T* __restrict__ y, const T* __restrict__ z,
     hv[v] *= silu<T>(zv[v]);
     ss += hv[v] * hv[v];
   }
-  const float r = rsqrtf(block_sum<GATED_THREADS / 32>(ss) /
+  const float r = rsqrtf(block_sum<THREADS / 32>(ss) /
                          static_cast<float>(d) + eps);
   T* orow = out + row * d;
 #pragma unroll
   for (int v = 0; v < GATED_MAX_V; ++v) {
-    const int i = threadIdx.x + v * GATED_THREADS;
+    const int i = threadIdx.x + v * THREADS;
     if (i < d) orow[i] = from_f32<T>(hv[v] * r * to_f32(scale[i]));
   }
 }
@@ -373,8 +384,8 @@ cudaError_t launch_gated(const void* y, const void* z, const void* scale,
   constexpr int E = 16 / sizeof(T);
   const int nvec = d / E;
   if (d % E == 0 && y_stride % E == 0 && z_stride % E == 0 &&
-      nvec <= VEC_MAX_W * 32 * VEC_MAX_V && aligned16(y) && aligned16(z) &&
-      aligned16(scale) && aligned16(out)) {
+      nvec <= GATED_VEC_MAX_W * 32 * VEC_MAX_V && aligned16(y) &&
+      aligned16(z) && aligned16(scale) && aligned16(out)) {
 #define VEC(W, V) launch_gated_vec<T, S, W, V>(y, z, scale, out, rows, d, \
                                                y_stride, z_stride, eps, stream)
     if (nvec <= 32) return VEC(1, 1);
@@ -382,13 +393,25 @@ cudaError_t launch_gated(const void* y, const void* z, const void* scale,
     if (nvec <= 128) return VEC(4, 1);
     if (nvec <= 256) return VEC(8, 1);
     if (nvec <= 512) return VEC(8, 2);
-    return VEC(8, 4);
+    if (nvec <= 1024) return VEC(8, 4);
+    if constexpr (E == 8) {     // bf16: d <= GATED_MAX_WIDTH is 2048 vectors
+      return VEC(16, 4);
+    } else {
+      if (nvec <= 2048) return VEC(16, 4);
+      return VEC(32, 4);        // fp32 past 8192
+    }
 #undef VEC
   }
-  gated_rmsnorm_kernel<T, S><<<rows, GATED_THREADS, 0, stream>>>(
-      static_cast<const T*>(y), static_cast<const T*>(z),
-      static_cast<const S*>(scale), static_cast<T*>(out), d, y_stride,
-      z_stride, eps);
+#define SCALAR(THREADS)                                                   \
+  gated_rmsnorm_kernel<T, S, THREADS><<<rows, THREADS, 0, stream>>>(      \
+      static_cast<const T*>(y), static_cast<const T*>(z),                 \
+      static_cast<const S*>(scale), static_cast<T*>(out), d, y_stride,    \
+      z_stride, eps)
+  if (d <= 256 * GATED_MAX_V)
+    SCALAR(256);
+  else
+    SCALAR(1024);
+#undef SCALAR
   return cudaGetLastError();
 }
 
@@ -419,7 +442,7 @@ extern "C" int gated_rmsnorm_fwd(const void* y, const void* z,
                                  int scale_f32, int rows, int d,
                                  long long y_stride, long long z_stride,
                                  float eps, void* stream) {
-  if (rows <= 0 || d <= 0 || d > GATED_THREADS * GATED_MAX_V || y_stride < d
+  if (rows <= 0 || d <= 0 || d > GATED_MAX_WIDTH || y_stride < d
       || z_stride < d || (scale_f32 && !bf16))
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);

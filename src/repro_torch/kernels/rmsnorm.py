@@ -22,7 +22,9 @@ launches = 0
 gated_launches = 0
 
 DTYPES = (torch.float32, torch.bfloat16)
-GATED_MAX_WIDTH = 4096      # 256 threads x 16 values a row
+# The widest gated row the kernel holds in registers (1024 threads x 16
+# values): jamba's d_inner, the widest gate of the repo's models.
+GATED_MAX_WIDTH = 16384
 
 
 @functools.lru_cache(maxsize=None)

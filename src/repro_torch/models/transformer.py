@@ -1,12 +1,14 @@
-"""Model assembly: dense, Mamba-2 and MoE stacks (counterpart of
+"""Model assembly: dense, Mamba-2, MoE and hybrid stacks (counterpart of
 ``repro.models.transformer``).
 
 A model is ``n_periods`` copies of a period of layers plus a remainder.
-Each layer's mixer is GQA attention or, for family ``ssm``, the Mamba-2
-mixer.  Its FFN is the one ``cfg.mlp_pattern`` names for its slot: the
-mixture of experts (``models/moe.py``) for ``"moe"``, else the SwiGLU MLP;
-a non-MoE block whose ``mlp`` is empty (``d_ff`` 0, as mamba2-370m) has
-no FFN and never reads ``ln2``.  The parameter and cache trees keep the
+Each layer's mixer is the one ``cfg.layer_pattern`` names for its slot:
+GQA attention (``"attn"``) or the Mamba-2 mixer (``"ssm"``), so one period
+may mix both, as jamba's 1:7 attention:Mamba period does.  Its FFN is the
+one ``cfg.mlp_pattern`` names for its slot: the mixture of experts
+(``models/moe.py``) for ``"moe"``, else the SwiGLU MLP; a non-MoE block
+whose ``mlp`` is empty (``d_ff`` 0, as mamba2-370m) has no FFN and never
+reads ``ln2``.  The parameter and cache trees keep the
 reference's layout exactly, so that the bridge and the serving splice read
 them the same way::
 
@@ -59,18 +61,18 @@ def model_dtype(cfg) -> torch.dtype:
 
 
 def check_supported(cfg):
-    """The port's model covers dense and MoE (family ``moe``) configs of
-    global attention and attention-free Mamba-2 (family ``ssm``) configs,
-    with SwiGLU FFNs (or GELU experts where every FFN is MoE, as the
-    reference's ``moe_ffn`` takes them); raise for any feature a later
-    slice brings."""
-    mixer = "ssm" if cfg.family == "ssm" else "attn"
+    """The port's model covers dense, MoE (family ``moe``), Mamba-2 (family
+    ``ssm``) and hybrid configs whose layers are global attention or
+    Mamba-2 mixers in any pattern (jamba), with SwiGLU FFNs (or GELU
+    experts where every FFN is MoE, as the reference's ``moe_ffn`` takes
+    them); raise for any feature a later slice brings."""
     acts = ("swiglu", "gelu") if all(m == "moe" for m in cfg.mlp_pattern) \
         else ("swiglu",)
+    other = sorted(set(cfg.layer_pattern) - {"attn", "ssm"})
     missing = [name for name, present in (
-        ("family " + cfg.family, cfg.family not in ("dense", "ssm", "moe")),
-        (f"non-{mixer} layers in a {cfg.family} model",
-         any(m != mixer for m in cfg.layer_pattern)),
+        ("family " + cfg.family,
+         cfg.family not in ("dense", "ssm", "moe", "hybrid")),
+        (f"{', '.join(other)} layers", bool(other)),
         ("act " + cfg.act, cfg.act not in acts),
         ("qkv_bias", cfg.qkv_bias),
         ("attn_logit_softcap", cfg.attn_logit_softcap is not None),
@@ -149,29 +151,55 @@ def leaf_dtype(leaf: Leaf, cfg, dtype=None) -> torch.dtype:
     return F32 if leaf.fp32 else dtype or model_dtype(cfg)
 
 
+# Elements a draw on the card takes at a time: 512 MiB of float32.
+DRAW_SLICE = 1 << 27
+
+
+def _draw(out, std, generator, slice_elems):
+    """Fill ``out`` with a normal truncated at two std, times ``std``,
+    drawn in float32 on the generator's device in slices of at most
+    ``slice_elems`` elements of ``out``'s flat order, each cast into its
+    slice of ``out`` as it is drawn."""
+    flat = out.view(-1)
+    for start in range(0, flat.numel(), slice_elems):
+        part = flat[start:start + slice_elems]
+        t = torch.empty(part.shape, dtype=F32, device=generator.device)
+        torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0,
+                                    generator=generator)
+        part.copy_(t.mul_(std))
+
+
 def init_params(cfg, generator: torch.Generator, *, device="cuda",
                 dtype=None):
     """Random parameters on ``device``: each leaf in its spec dtype (the
     model dtype, or ``dtype`` where given, except float32 leaves).
 
-    The draws come from ``generator``, a CPU generator, and are moved to the
-    device afterwards, so one seed gives the same weights on every device.
-    Only leaves with a ``std`` draw; the others are fixed, as in the
-    reference.
+    With a CPU ``generator`` (what the entry points pass) each leaf is
+    drawn whole in float32 on the host and then moved, so one seed gives
+    the same weights on every device.  With a generator on ``device``
+    itself the draw happens there, in place, in slices of ``DRAW_SLICE``
+    elements: no leaf exists in float32 as a whole, on the card or on the
+    host, so that 48 GB of bf16 weights (jamba at full width, 5 layers)
+    are drawn on one card in about a second.  Its values differ from the
+    CPU draw of the same seed.  Only leaves with a ``std`` draw; the others
+    are fixed, as in the reference.
     """
     dev = resolve_device(device)
-    if generator.device.type != "cpu":
-        raise ValueError("init_params draws from a CPU torch.Generator")
+    on_host = generator.device.type == "cpu"
+    if not on_host and (generator.device.type != dev.type or (
+            dev.index is not None and generator.device.index != dev.index)):
+        raise ValueError(f"init_params draws from a CPU torch.Generator or "
+                         f"one on {dev}, not on {generator.device}")
 
     def make(leaf):
+        out = torch.empty(leaf.shape, dtype=leaf_dtype(leaf, cfg, dtype),
+                          device=dev)
         if leaf.std is None:
-            t = leaf.fixed(leaf.shape)
+            out.copy_(leaf.fixed(leaf.shape))
         else:
-            t = torch.empty(leaf.shape, dtype=F32)
-            torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0,
-                                        generator=generator)
-            t = t * leaf.std
-        return t.to(device=dev, dtype=leaf_dtype(leaf, cfg, dtype))
+            _draw(out, leaf.std, generator,
+                  max(out.numel(), 1) if on_host else DRAW_SLICE)
+        return out
 
     return _tree_map(make, param_spec(cfg))
 

@@ -5,8 +5,9 @@ written by either package restored by the other, leaf for leaf
 (``.opt.step`` included); the async save's snapshot invariant; and the
 port's copies of ``ElasticResizePlan`` and ``CrashInjector`` against the
 originals.  The train states are reduced llsc-100m, reduced
-mamba2-370m and reduced granite-moe-1b-a400m (its float32 router among
-the leaves).
+mamba2-370m, reduced granite-moe-1b-a400m (its float32 router among
+the leaves) and reduced jamba-1.5-large-398b, whose moments are bfloat16:
+stored as float32 and restored as bfloat16 by either package.
 """
 import os
 import threading
@@ -24,6 +25,7 @@ from repro.train import checkpoint as jax_ck  # noqa: E402
 from repro.train import train_step as jax_ts  # noqa: E402
 from repro_torch.bridge import from_jax_params  # noqa: E402
 from repro_torch.configs import reduced_config  # noqa: E402
+from repro_torch.models.transformer import leaves  # noqa: E402
 from repro_torch.launch.fault import (CrashInjector,  # noqa: E402
                                       ElasticResizePlan, StragglerDetector,
                                       resume_latest)
@@ -33,7 +35,8 @@ from repro_torch.train.data import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.train.trainer import Trainer, TrainerConfig  # noqa: E402
 
 F32 = torch.float32
-ARCHS = ["llsc-100m", "mamba2-370m", "granite-moe-1b-a400m"]
+ARCHS = ["llsc-100m", "mamba2-370m", "granite-moe-1b-a400m",
+         "jamba-1.5-large-398b"]
 
 
 def _tc(**changes):
@@ -240,7 +243,8 @@ def _keyed(tree):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_jax_written_state_restores_in_the_port(arch, tmp_path):
     """Parameters and moments equal the bridge of the JAX state's, in the
-    port's dtypes; ``.opt.step`` comes back as the int 1."""
+    port's dtypes (the moments in the config's ``opt_dtype``); ``.opt.step``
+    comes back as the int 1."""
     _, _, jstate = _jax_state(arch)
     jax_ck.save_checkpoint(str(tmp_path), 1, jstate)
     cfg = reduced_config(arch)
@@ -248,6 +252,9 @@ def test_jax_written_state_restores_in_the_port(arch, tmp_path):
     state, start = resume_latest(str(tmp_path), template, device="cpu")
     assert start == 1
     assert state.opt.step == 1 and type(state.opt.step) is int
+    moment = getattr(torch, cfg.opt_dtype)
+    assert all(t.dtype == moment for tree in (state.opt.m, state.opt.v)
+               for t in leaves(tree))
     for mine, theirs in ((state.params, jstate.params),
                          (state.opt.m, jstate.opt.m),
                          (state.opt.v, jstate.opt.v)):
@@ -262,7 +269,8 @@ def test_jax_written_state_restores_in_the_port(arch, tmp_path):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_port_written_state_restores_in_jax(arch, tmp_path):
     """The JAX package restores the port's file into a ``jax.eval_shape``
-    template: every leaf equal, ``.opt.step`` an int32 1."""
+    template: every leaf equal, the moments in the config's ``opt_dtype``,
+    ``.opt.step`` an int32 1."""
     cfg = reduced_config(arch)
     ocfg = ts.default_opt_cfg(cfg)
     state = ts.init_train_state(cfg, torch.Generator().manual_seed(0), ocfg,
@@ -280,8 +288,11 @@ def test_port_written_state_restores_in_jax(arch, tmp_path):
     assert got.keys() == want.keys()
     assert got[".opt.step"].dtype == np.int32 and int(got[".opt.step"]) == 1
     for k in want:
-        assert got[k].dtype == want[k].dtype and np.array_equal(
-            got[k], want[k]), k
+        arr = got[k]
+        if k.startswith((".opt.m", ".opt.v")):
+            assert arr.dtype.name == cfg.opt_dtype, k
+            arr = arr.astype(np.float32)
+        assert arr.dtype == want[k].dtype and np.array_equal(arr, want[k]), k
 
 
 # --------------------------------------------------------------------------

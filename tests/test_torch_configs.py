@@ -20,8 +20,8 @@ from repro_torch.models.perf_flags import PerfFlags  # noqa: E402
 
 
 def test_registered_archs():
-    assert list_archs() == ["granite-moe-1b-a400m", "llsc-100m",
-                            "mamba2-370m", "qwen3-moe-30b-a3b"]
+    assert list_archs() == ["granite-moe-1b-a400m", "jamba-1.5-large-398b",
+                            "llsc-100m", "mamba2-370m", "qwen3-moe-30b-a3b"]
 
 
 MOE_ARCHS = ["granite-moe-1b-a400m", "qwen3-moe-30b-a3b"]
@@ -71,6 +71,53 @@ def test_granite_counts():
 
 
 @pytest.mark.parametrize("reduced", [False, True])
+def test_jamba_config_equals_reference(reduced):
+    mine = get_config("jamba-1.5-large-398b")
+    ref = jax_get_config("jamba-1.5-large-398b")
+    if reduced:
+        mine, ref = reduced_config(mine), jax_reduced(ref)
+    assert dataclasses.asdict(mine) == dataclasses.asdict(ref)
+    assert mine.opt_dtype == "bfloat16"
+
+
+@pytest.mark.parametrize("change", [{}, {"n_layers": 5}, {"n_layers": 1},
+                                    "reduced", "reduced_2_layers"])
+def test_jamba_param_counts_and_flops_equal_reference(change):
+    """count_params, count_params_analytic (total and active) and
+    model_flops of the reference, from the shapes alone: at 72 layers (9
+    stacked periods), at the 5 of chip_smoke's serve (no stacked period, 5
+    remainder layers), at 1, and on the reduced config (one period of 8)
+    and 2 of its layers."""
+    cfg = get_config("jamba-1.5-large-398b")
+    ref = jax_get_config("jamba-1.5-large-398b")
+    if isinstance(change, str):
+        cfg, ref = reduced_config(cfg), jax_reduced(ref)
+        change = {"n_layers": 2} if change == "reduced_2_layers" else {}
+    cfg = dataclasses.replace(cfg, **change)
+    ref = dataclasses.replace(ref, **change)
+    assert model_lib.count_params(cfg) == jax_model.count_params(ref)
+    for active in (False, True):
+        assert model_lib.count_params_analytic(cfg, active) == \
+            jax_model.count_params_analytic(ref, active)
+    for training in (False, True):
+        assert model_lib.model_flops(cfg, 7, training=training) == \
+            jax_model.model_flops(ref, 7, training=training)
+
+
+def test_jamba_counts():
+    cfg = get_config("jamba-1.5-large-398b")
+    assert model_lib.count_params(cfg) == 397_596_263_520
+    five = dataclasses.replace(cfg, n_layers=5)
+    assert (five.n_periods, five.n_remainder) == (0, 5)
+    assert model_lib.count_params(five) == 23_984_828_032
+    assert model_lib.count_params_analytic(five, True) == 7_073_394_304
+    assert model_lib.model_flops(five, 1, training=False) == \
+        2 * 7_073_394_304
+    one = dataclasses.replace(cfg, n_layers=1)
+    assert model_lib.count_params(one) == 2_082_857_888
+
+
+@pytest.mark.parametrize("reduced", [False, True])
 def test_mamba2_config_equals_reference(reduced):
     mine, ref = get_config("mamba2-370m"), jax_get_config("mamba2-370m")
     if reduced:
@@ -117,18 +164,19 @@ def test_unsupported_features_raise():
 
 
 @pytest.mark.parametrize("arch,change,match", [
-    ("jamba-1.5-large-398b", {}, "family hybrid"),
-    ("mamba2-370m", {"layer_pattern": ("ssm", "attn"),
-                     "mlp_pattern": ("mlp", "mlp")}, "non-ssm layers"),
+    ("qwen1.5-4b", {}, "qkv_bias"),
+    ("gemma3-1b", {}, "attn_local layers"),
     ("llsc-100m", {"layer_pattern": ("attn", "attn_local"), "attn_window": 8,
-                   "mlp_pattern": ("mlp", "mlp")}, "non-attn layers"),
+                   "mlp_pattern": ("mlp", "mlp")}, "attn_local layers"),
     ("granite-moe-1b-a400m", {"act": "geglu"}, "act geglu"),
     ("minicpm3-4b", {}, "mla"),
     ("whisper-base", {}, "encoder"),
 ])
 def test_unsupported_mixes_raise(arch, change, match):
-    """Hybrid attention+SSM, local attention, other than SwiGLU or GELU
-    experts, MLA and encoders stay unsupported."""
+    """QKV bias, local attention (gemma3's, or planted in a dense
+    pattern), other than SwiGLU or GELU experts, MLA and encoders stay
+    unsupported; attention and Mamba-2 layers in one pattern (jamba) do
+    not raise."""
     cfg = dataclasses.replace(jax_get_config(arch), **change)
     mine = ModelConfig(**{f.name: getattr(cfg, f.name)
                           for f in dataclasses.fields(cfg)})

@@ -45,7 +45,7 @@ def _close(got, want, dtype):
     (1, 12, 12, 256, 256, 64, True), (2, 4, 2, 100, 100, 64, True),
     (1, 4, 1, 33, 70, 32, False), (1, 12, 12, 1024, 1024, 64, True),
     (1, 4, 2, 16, 16, 64, True), (1, 4, 2, 1, 1, 64, True),
-    (1, 8, 2, 320, 320, 128, True)])
+    (1, 8, 2, 320, 320, 128, True), (1, 64, 8, 256, 256, 128, True)])
 def test_flash_kernel_matches_plain(dev, B, H, Hk, S, T, D, causal, dtype):
     g = torch.Generator(device=dev).manual_seed(S * D + H)
     q = torch.randn(B, H, S, D, device=dev, generator=g).to(dtype)
@@ -199,11 +199,14 @@ def test_norms_take_bf16_input_with_a_float32_scale(dev, rows, d, off):
     torch.cuda.synchronize()
 
 
-# The reference's shape, then mamba2-370m's decode (4 slots) and prefill
-# (320 tokens) rows of 2048.
+# The reference's shape, mamba2-370m's decode (4 slots) and prefill (320
+# tokens) rows of 2048, jamba's decode and prefill rows of 16384 (the
+# vector body at 16 and 32 warps a row), and a width past 4096 that is no
+# whole number of vectors (the scalar body at 1024 threads a row).
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape", [(4, 16, 128), (4, 1, 2048), (1, 320, 2048),
-                                   (3, 1000), (7, 64), (2, 4096)])
+                                   (3, 1000), (7, 64), (2, 4096),
+                                   (4, 1, 16384), (1, 256, 16384), (3, 9999)])
 def test_gated_rmsnorm_kernel_matches_plain(dev, shape, dtype):
     g = torch.Generator(device=dev).manual_seed(sum(shape))
     y = torch.randn(shape, device=dev, generator=g).to(dtype)
@@ -215,13 +218,17 @@ def test_gated_rmsnorm_kernel_matches_plain(dev, shape, dtype):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_gated_rmsnorm_reads_a_strided_gate(dev, dtype):
-    """The gate as the model has it: a slice of the input projection."""
+@pytest.mark.parametrize("d,proj_width", [(2048, 2 * 2048 + 288),
+                                          (16384, 2 * 16384 + 2 * 16 + 256)])
+def test_gated_rmsnorm_reads_a_strided_gate(dev, dtype, d, proj_width):
+    """The gate as the model has it: a slice of the input projection, at
+    mamba2-370m's width and at jamba's, whose projection rows are 33,056
+    elements apart."""
     g = torch.Generator(device=dev).manual_seed(3)
-    proj = torch.randn(4, 5, 2 * 2048 + 288, device=dev, generator=g).to(dtype)
-    y = torch.randn(4, 5, 2048, device=dev, generator=g).to(dtype)
-    z = proj[..., :2048]
-    s = torch.ones(2048, device=dev, dtype=dtype)
+    proj = torch.randn(4, 5, proj_width, device=dev, generator=g).to(dtype)
+    y = torch.randn(4, 5, d, device=dev, generator=g).to(dtype)
+    z = proj[..., :d]
+    s = torch.ones(d, device=dev, dtype=dtype)
     got = rn.gated_rmsnorm(y, z, s)
     torch.cuda.synchronize()
     _close(got, ref.gated_rmsnorm_ref(y, z, s), dtype)
@@ -259,12 +266,13 @@ def _ssd_inputs(dev, N, l, h, p, g, n, dtype, seed=0):
 # The sweep of tests/test_kernels.py, ragged chunks (40: one key tile of
 # the tensor-core body; 200 and 100: several, the last partial), p = 128,
 # three heads a group (one head a block), then mamba2-370m's two chunks of
-# a 320-token prefill (the second padded).
+# a 320-token prefill (the second padded) and jamba's chunk of 256 (256
+# heads of 64, state 16).
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("N,l,h,p,g,n", [
     (1, 32, 4, 16, 1, 8), (2, 64, 8, 32, 2, 16), (1, 16, 2, 8, 2, 4),
     (3, 40, 4, 64, 1, 128), (1, 200, 4, 128, 1, 64), (2, 100, 6, 64, 2, 128),
-    (2, 256, 32, 64, 1, 128)])
+    (2, 256, 32, 64, 1, 128), (1, 256, 256, 64, 1, 16)])
 def test_ssd_kernel_matches_plain(dev, N, l, h, p, g, n, dtype):
     x, dt, A, B, C = _ssd_inputs(dev, N, l, h, p, g, n, dtype, seed=l + h)
     for out_dtype in {torch.float32, dtype}:
@@ -363,9 +371,9 @@ def test_mamba_kernels_refuse_what_they_do_not_take(dev):
                                            dtype=torch.bfloat16))
     with pytest.raises(ValueError, match="contiguous"):     # strided columns
         ops.gated_rmsnorm(y[:, ::2], y[:, ::2], torch.ones(32, device=dev))
-    wide = torch.randn(2, 4097, device=dev)
-    with pytest.raises(ValueError, match="at most 4096"):   # too wide a row
-        ops.gated_rmsnorm(wide, wide, torch.ones(4097, device=dev))
+    wide = torch.randn(2, 16385, device=dev)
+    with pytest.raises(ValueError, match="at most 16384"):  # too wide a row
+        ops.gated_rmsnorm(wide, wide, torch.ones(16385, device=dev))
     x, dt, A, B, C = _ssd_inputs(dev, 1, 32, 4, 16, 1, 8, torch.float32)
     with pytest.raises(ValueError, match="float32"):        # bf16 dt
         ops.ssd_intra_chunk(x, dt.to(torch.bfloat16), A, B, C)

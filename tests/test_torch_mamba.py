@@ -7,7 +7,8 @@ two stacked layers (d_ff=0, the block the full model runs).  Tolerance
 
 Also, at full size without allocating: the port's parameter spec and
 cache tree equal the reference's leaf by leaf in shape and dtype, for
-mamba2-370m, llsc-100m and the two MoE configs (the router float32).
+mamba2-370m, llsc-100m, the two MoE configs (the router float32) and the
+jamba hybrid.
 """
 import dataclasses
 
@@ -122,7 +123,7 @@ def test_greedy_decode_matches(setup):
 
 
 ARCHS = ["mamba2-370m", "llsc-100m", "granite-moe-1b-a400m",
-         "qwen3-moe-30b-a3b"]
+         "qwen3-moe-30b-a3b", "jamba-1.5-large-398b"]
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -2,7 +2,9 @@
 the CPU: the chunked loss, the gradients of ``lm_loss`` with respect to
 the float32 masters (flash path on and off, float32 and bfloat16), one
 AdamW update and its schedule, the weight-decay mask, and three train
-steps (reduced llsc-100m and mamba2-370m, ``remat`` "none" and "full"),
+steps (reduced llsc-100m, mamba2-370m, granite-moe-1b-a400m and
+jamba-1.5-large-398b, whose moments are bfloat16; ``remat`` "none" and
+"full"),
 each on the same weights (the reference's float32 masters, carried across
 by the bridge) and the JAX package's own batches.  Then ``cfg.remat``
 against itself (gradients bit for bit, launch counts, the serve paths),
@@ -65,6 +67,14 @@ from repro_torch.train import train_step as ts  # noqa: E402
 
 F32 = torch.float32
 B, S = 2, 64        # S a multiple of min(128, S): the flash gate holds
+JAMBA = "jamba-1.5-large-398b"
+ARCHS = ["llsc-100m", "mamba2-370m", "granite-moe-1b-a400m", JAMBA]
+
+
+def _two_layers(arch):
+    """Two layers, or for jamba its reduced period of 8, the fewest that
+    holds its attention layer and a whole period for ``_remat``."""
+    return 8 if arch == JAMBA else 2
 
 
 def _chip_smoke():
@@ -229,6 +239,22 @@ def test_granite_lm_loss_gradients_match_jax(aux_weights, n_layers):
             1e-3 * float(np.max(np.abs(jg[key])))
 
 
+@pytest.mark.parametrize("aux_weights", [None, (0.01, 1e-3)])
+def test_jamba_lm_loss_gradients_match_jax(aux_weights):
+    """Reduced jamba (attention on slot 4, Mamba-2 elsewhere, MoE on the odd
+    slots) in float32, flash on, with and without the MoE auxiliary
+    losses: the loss within 1e-5 relative, each leaf's gradient within
+    5e-3 and 1e-4 of its largest."""
+    jcfg, cfg = _configs(arch=JAMBA)
+    jl, jg, loss, grads = _grads(jcfg, cfg, True, aux_weights=aux_weights)
+    assert abs(loss - jl) <= 1e-5 * abs(jl)
+    assert set(grads) == set(jg)
+    for key, g in grads.items():
+        err = float(np.max(np.abs(_t(g) - jg[key])))
+        peak = float(np.max(np.abs(jg[key])))
+        assert err < 5e-3 and err <= 1e-4 * peak, (key, err, peak)
+
+
 @pytest.mark.parametrize("remat", ["none", "full"])
 @pytest.mark.parametrize("arch", ["llsc-100m", "mamba2-370m",
                                   "granite-moe-1b-a400m"])
@@ -391,8 +417,7 @@ def test_lr_schedule_matches_jax():
     assert math.isclose(opt.lr_schedule(pcfg, 1), 3e-4 / 10)
 
 
-@pytest.mark.parametrize("arch", ["llsc-100m", "mamba2-370m",
-                                  "granite-moe-1b-a400m"])
+@pytest.mark.parametrize("arch", ARCHS)
 def test_decay_mask_matches_jax(arch):
     """Over every leaf of the full-size tree (shapes only): the mask reads
     the reference's key string, so A_log, D, dt_bias and every norm scale
@@ -425,12 +450,12 @@ def test_decay_mask_matches_jax(arch):
 
 
 @pytest.mark.parametrize("remat", ["none", "full"])
-@pytest.mark.parametrize("arch", ["llsc-100m", "mamba2-370m",
-                                  "granite-moe-1b-a400m"])
+@pytest.mark.parametrize("arch", ARCHS)
 def test_three_train_steps_match_jax(arch, remat):
     """Losses within 1e-5 relative, parameters within ``update_gaps``'
     bounds, with ``cfg.remat`` the same on both sides; an optimizer that
-    does not step, or steps the wrong way, fails those bounds."""
+    does not step, or steps the wrong way, fails those bounds.  The
+    moments are in the config's ``opt_dtype``: bfloat16 for jamba."""
     _three_steps(*_configs(arch=arch, remat=remat))
 
 
@@ -467,6 +492,9 @@ def _three_steps(jcfg, cfg, aux_weights=None):
     g1 = {k: torch.from_numpy(v.copy()) for k, v in g1.items()}
     got = _paths(state.params)
     assert all(t.dtype == F32 for t in got.values())
+    moment = getattr(torch, cfg.opt_dtype)
+    assert all(t.dtype == moment for tree in (state.opt.m, state.opt.v)
+               for t in tf.leaves(tree))
     assert state.opt.step == 3
     update_gaps = _chip_smoke().update_gaps
     tight, loose, held = update_gaps(got, want, g1, lrs)
@@ -508,24 +536,34 @@ def _kernel_stand_ins(monkeypatch):
     return launches
 
 
-@pytest.mark.parametrize("arch", ["llsc-100m", "mamba2-370m",
-                                  "granite-moe-1b-a400m"])
+def _forward_launches(cfg):
+    """The block-level kernels one forward of every layer launches: by each
+    layer's mixer, flash or the gated norm and the SSD block, and ln1, and
+    ln2 where the block has an FFN (the reduced mamba has one)."""
+    slots = list(zip(cfg.layer_pattern, cfg.mlp_pattern))
+    out = {}
+    for kind, mlp_kind in slots * cfg.n_periods + slots[:cfg.n_remainder]:
+        for name in (("gated_rmsnorm", "ssd_intra_chunk") if kind == "ssm"
+                     else ("flash_attention",)):
+            out[name] = out.get(name, 0) + 1
+        ffn = mlp_kind == "moe" or cfg.d_ff > 0
+        out["rmsnorm"] = out.get("rmsnorm", 0) + (2 if ffn else 1)
+    return out
+
+
+@pytest.mark.parametrize("arch", ARCHS)
 def test_remat_gives_the_gradients_of_none_bit_for_bit(arch, monkeypatch):
-    """Two layers, the kernel routes stood in: "full" and "dots" (and the
-    ``remat_dots`` flag) give the loss and the gradients of "none" bit for
-    bit, and launch every block-level forward kernel twice a step (once in
-    the forward, once in the backward's recompute); the final norm, outside
-    the periods, once."""
+    """Two layers (jamba: its period of 8), the kernel routes stood in:
+    "full" and "dots" (and the ``remat_dots`` flag) give the loss and the
+    gradients of "none" bit for bit, and launch every block-level forward
+    kernel twice a step (once in the forward, once in the backward's
+    recompute); the final norm, outside the periods, once."""
     launches = _kernel_stand_ins(monkeypatch)
-    _, base = _configs(arch=arch, n_layers=2)
+    _, base = _configs(arch=arch, n_layers=_two_layers(arch))
     params = ts.init_train_state(base, torch.Generator().manual_seed(0),
                                  ts.default_opt_cfg(base), device="cpu").params
     batch = SyntheticLM(DataConfig(base.vocab_size, S, B, 0)).batch(0)
-    # ln1, and ln2 where the block has an FFN (the reduced mamba has one)
-    norms = 2 if base.d_ff else 1
-    per_block = ({"rmsnorm": norms, "gated_rmsnorm": 1, "ssd_intra_chunk": 1}
-                 if base.family == "ssm" else
-                 {"flash_attention": 1, "rmsnorm": norms})
+    per_forward = _forward_launches(base)
     out = {}
     for remat, flags in (("none", ""), ("full", ""), ("dots", ""),
                          ("full", "remat_dots")):
@@ -535,7 +573,7 @@ def test_remat_gives_the_gradients_of_none_bit_for_bit(arch, monkeypatch):
             loss, grads = ts.loss_and_grads(params, cfg, batch,
                                             aux_weights=(0.01, 1e-3))
         runs = 1 if remat == "none" else 2
-        want = {k: n * runs * cfg.n_layers for k, n in per_block.items()}
+        want = {k: n * runs for k, n in per_forward.items()}
         want["rmsnorm"] += 1
         assert launches == want, (remat, flags, launches)
         out[remat, flags] = (loss, _paths(grads))
@@ -576,12 +614,11 @@ def test_remat_recompute_takes_the_forward_routes_on_another_thread():
                zip(out["grads"], tf.leaves(want)))
 
 
-@pytest.mark.parametrize("arch", ["llsc-100m", "mamba2-370m",
-                                  "granite-moe-1b-a400m"])
+@pytest.mark.parametrize("arch", ARCHS)
 def test_remat_leaves_the_serve_paths_alone(arch, monkeypatch):
     """Prefill and decode record no graph, so ``_remat`` is never entered
     and the prefill logits are the same whatever ``cfg.remat`` says."""
-    _, base = _configs(arch=arch, n_layers=2)
+    _, base = _configs(arch=arch, n_layers=_two_layers(arch))
     params = model_lib.init_params(base, torch.Generator().manual_seed(0),
                                    device="cpu")
     tokens = torch.from_numpy(np.random.default_rng(0).integers(
