@@ -16,7 +16,9 @@ It imports nothing of JAX or of the JAX package.  Phases:
    float32 and 2e-2 in bfloat16 for attention and the norms, 2e-4 for the
    SSD block, computed in float32 from either input dtype, as
    |a - b| <= atol + rtol * |b|), with a long sequence (S = T = 1024) for
-   flash attention, bfloat16 norms with a float32 scale, rows off 16-byte
+   flash attention, flash at D = 16 and 256 with ragged S and T and a
+   causal S = T = 1024 and 1280 at D = 256, bfloat16 norms with a float32
+   scale, rows off 16-byte
    alignment for both norms (their scalar bodies), and the SSD block on
    the model's strided views (its tensor-core body), on B, C off 16-byte
    alignment (its CUDA-core body) and at full width on the draw of the
@@ -27,10 +29,13 @@ It imports nothing of JAX or of the JAX package.  Phases:
    launching; then time kernel, plain version and the library call where
    one exists (device
    time from torch.profiler's kernel records, with the CUDA-event time of
-   a call beside it) against the data-sheet bound: flash attention at S =
-   128 and 256 (jamba's 64 query and 8 KV heads of 128 among them),
-   RMSNorm at jamba's rows of 8192, llsc-100m's of 768 and mamba2-370m's
-   of 1024, the gated norm at 4 and 256 rows of jamba's 16384 and 4 and
+   a call beside it) against the data-sheet bound: flash attention at
+   reduced gemma3's D = 16 (S = 64), at gemma3-1b's 4 query and 1 KV head
+   of 256 (S = 256 and 640, and a train step's 8 x 256), at S = 128 and
+   256 (jamba's 64 query and 8 KV heads of 128 among them), RMSNorm at
+   gemma3's rows of 1152, jamba's of 8192, llsc-100m's of 768 and
+   mamba2-370m's of 1024, the gated norm at 4 and 256 rows of jamba's
+   16384 and 4 and
    320 rows of 2048, the SSD block at jamba's chunk of 256 heads and at
    two chunks of mamba2-370m; the gated norm refuses a row of 16385;
 4. serve llsc-100m at full width and depth in bfloat16 with
@@ -130,16 +135,38 @@ It imports nothing of JAX or of the JAX package.  Phases:
     layer over a 128-token prefill and 8 greedy decode steps, and the
     attention block of slot 4 alone through ``apply_block_full`` and 8
     ``apply_block_decode`` steps on its KV cache;
-28. reduced jamba (one period of 8) in float32, card against CPU without
-    ``flash_kernel`` (its d_head of 16 is not a flash head dim): prefill and
+28. reduced jamba (one period of 8) in float32, card against CPU with
+    ``flash_kernel`` (the fp32 body at its d_head of 16): prefill and
     decode logits, then 2 train steps with bf16 moments and aux losses, as
     13, with no expert-route flip;
 29. ``launch.serve`` and ``launch.train`` (20 steps) of reduced jamba on
     the card exit 0;
-30. the launches of each main path (the serves of 4, 7, 19 and 25, the
-    train runs of 11, 14 and 22), one ``{"kernels": [...]}`` line (each
-    kernel's launches summed over those paths), the nvidia-smi line, and
-    last the ``{"ok": true, ...}`` line.
+30. after a collection and ``empty_cache``, serve gemma3-1b (4 periods of
+    5 sliding-window layers of window 512 and a global layer, 2 local
+    remainder layers; 4 query heads and 1 KV head of 256; GeGLU; vocab
+    262144, tied) at full width and depth in bfloat16 with
+    ``flash_kernel`` (999,812,736 parameters drawn on the card): prompts
+    of 256 and 640 tokens, 32 new tokens each, ``max_seq_len`` 768, so
+    the long requests decode past the window; flash = 4 x prefills (the
+    global layers only), rmsnorm = 53 x (prefills + decode steps);
+31. the serve of 30 under ``torch.profiler``, as 6;
+32. train gemma3-1b at full width and depth as 11 (8 flash and 101
+    RMSNorm launches a step: the 4 global layers lie in the stacked
+    periods and are recomputed);
+33. one gemma3-1b train step under ``torch.profiler``, as 12;
+34. float32 at full width and 6 of 26 layers (one period), card against
+    CPU within 1e-4: a 640-token prefill and 8 greedy decode steps past
+    the window, the same tokens; a 1280-token forward (past the 1024-row
+    ``attn_chunk``) with and without ``banded_local``, hidden states and
+    logits against the CPU's and against each other; 2 train steps, as 13;
+35. reduced gemma3 in float32 with ``flash_kernel`` and ``banded_local``,
+    card against CPU: prefill and decode logits, then 2 train steps; and
+    ``launch.serve`` and ``launch.train`` (20 steps) of reduced gemma3
+    exit 0;
+36. the launches of each main path (the serves of 4, 7, 19, 25 and 30,
+    the train runs of 11, 14, 22 and 32), one ``{"kernels": [...]}`` line
+    (each kernel's launches summed over those paths), the nvidia-smi line,
+    and last the ``{"ok": true, ...}`` line.
 
 Any failed check raises, and the script exits non-zero; without a CUDA
 device, or outside a checkout, it prints no result and exits 1.
@@ -170,6 +197,13 @@ SSD_TOL = 2e-4
 GRAD_RTOL = 1e-4
 UPDATE_CLEAR = 1e-2
 UPDATE_RTOL = 1e-2
+
+
+# The flash instances added for gemma3-1b (D = 256) and the reduced
+# configs (D = 16), by their names in ptxas' log: neither may spill.
+NEW_FLASH_INSTANCES = ("flash_fwd_mma_kernel<Li16>",
+                       "flash_fwd_mma_kernel<Li256>",
+                       "flash_fwd_kernel<fLi16>", "flash_fwd_kernel<fLi256>")
 
 
 def check(cond, msg):
@@ -355,12 +389,24 @@ def phase_kernels(torch, fa, rn, ref, hw):
         # jamba-1.5-large-398b (64 query and 8 KV heads of 128): the serve's
         # prefills
         (1, 64, 8, 128, 128, True), (1, 64, 8, 256, 128, True)]
+    # D = 16 and 256, with T apart from S: B, H, Hk, S, T, D, causal
+    flash_wide = [
+        # every reduced config (reduced gemma3: 4 query heads, 1 KV head)
+        (2, 4, 2, 128, 128, 16, True), (1, 4, 1, 33, 70, 16, False),
+        (2, 4, 4, 100, 100, 16, True), (1, 4, 1, 64, 64, 16, True),
+        # gemma3-1b's global layers: the serve's prefills, a train step,
+        # the fp32 check's 1280 tokens, ragged S and T, a long causal
+        (1, 4, 1, 256, 256, 256, True), (1, 4, 1, 640, 640, 256, True),
+        (8, 4, 1, 256, 256, 256, True), (1, 4, 1, 1280, 1280, 256, True),
+        (2, 4, 1, 100, 100, 256, True), (1, 4, 2, 33, 70, 256, False),
+        (1, 4, 1, 1024, 1024, 256, True)]
     # llsc-100m's, mamba2-370m's and granite-moe-1b-a400m's rows (serve,
     # train step), jamba's (serve, on the scalar body), then widths of the
     # scalar body
     rms_cases = [(32, 128), (33, 256), (7, 64), (4, 768), (256, 768),
                  (2048, 768), (4, 1024), (256, 1024), (320, 1024),
-                 (2048, 1024), (4, 8192), (256, 8192), (5, 100), (3, 101)]
+                 (2048, 1024), (4, 8192), (256, 8192), (4, 1152),
+                 (256, 1152), (640, 1152), (2048, 1152), (5, 100), (3, 101)]
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[1]
         for B, H, Hk, S, D, causal in flash_cases:
@@ -370,6 +416,13 @@ def phase_kernels(torch, fa, rn, ref, hw):
             errs["flash_attention"][key] = compare(
                 f"flash {dn} B{B} H{H} Hk{Hk} S{S} D{D} causal={causal}",
                 fa.flash_attention(q, k, v, causal=causal),
+                ref.attention_ref(q, k, v, causal=causal), dn)
+        for B, H, Hk, S, T, D, causal in flash_wide:
+            q = randn(B, H, S, D, dtype=dtype)
+            k, v = (randn(B, Hk, T, D, dtype=dtype) for _ in range(2))
+            errs["flash_attention"][(dn, B, H, S, D, causal)] = compare(
+                f"flash {dn} B{B} H{H} Hk{Hk} S{S} T{T} D{D} "
+                f"causal={causal}", fa.flash_attention(q, k, v, causal=causal),
                 ref.attention_ref(q, k, v, causal=causal), dn)
         # the model's layout, with q, k, v as strided views of one buffer
         qkv = randn(1, 256, 3, 12, 64, dtype=dtype)
@@ -399,18 +452,22 @@ def phase_kernels(torch, fa, rn, ref, hw):
                 "bfloat16")
     check_refusals(torch, fa, rn, randn)
 
-    # Timings at the main paths' shapes, bf16: the attention of jamba's,
-    # llsc-100m's and granite-moe-1b-a400m's prefills of 128 and 256 tokens
-    # and of a train step (8 x 256), and a norm over a decode step's 4
-    # slots (2 in 3 norm launches of the serve) beside a prefill's rows and
-    # a train step's 2048, at jamba's width (8192), llsc-100m's (768) and
-    # mamba2-370m's and granite's (1024), the scale in bf16 as the serves
-    # hold it.  The kernels line keeps llsc-100m's B = 1, S = 256 and 4
-    # rows of 768.
+    # Timings at the main paths' shapes, bf16: the attention of reduced
+    # gemma3's prefill of 64 tokens (D 16), of gemma3-1b's global layers (4
+    # query heads, 1 KV head of 256) at its prefills of 256 and 640 tokens
+    # and a train step, of jamba's, llsc-100m's and granite-moe-1b-a400m's
+    # prefills of 128 and 256 tokens and of a train step (8 x 256), and a
+    # norm over a decode step's 4 slots beside a
+    # prefill's rows and a train step's 2048, at gemma3's width (1152),
+    # jamba's (8192), llsc-100m's (768) and mamba2-370m's and granite's
+    # (1024), the scale in bf16 as the serves hold it.  The kernels line
+    # keeps llsc-100m's B = 1, S = 256 and 4 rows of 768.
     F = torch.nn.functional
     rows = []
     bf16 = torch.bfloat16
-    for H, Hk, B, S, D in ((64, 8, 1, 128, 128), (64, 8, 1, 256, 128),
+    for H, Hk, B, S, D in ((4, 1, 1, 64, 16), (4, 1, 1, 256, 256),
+                           (4, 1, 1, 640, 256), (4, 1, 8, 256, 256),
+                           (64, 8, 1, 128, 128), (64, 8, 1, 256, 128),
                            (16, 8, 8, 256, 64), (16, 8, 1, 128, 64),
                            (16, 8, 1, 256, 64), (12, 12, 8, 256, 64),
                            (12, 12, 1, 128, 64), (12, 12, 1, 256, 64)):
@@ -434,7 +491,8 @@ def phase_kernels(torch, fa, rn, ref, hw):
                      max_abs_err=errs["flash_attention"][
                          ("bfloat16", 1, 12, 256, 64, True)],
                      bound_ms=bound * 1e3, bound_by=by, **t))
-    for d, nrows_list in ((8192, (256, 4)), (1024, (2048, 320, 4)),
+    for d, nrows_list in ((1152, (2048, 640, 256, 4)), (8192, (256, 4)),
+                          (1024, (2048, 320, 4)),
                           (768, (2048, 256, 4))):
         for nrows in nrows_list:
             x = randn(nrows, d, dtype=bf16)
@@ -769,7 +827,8 @@ def make_requests(engine_mod, vocab, n, seed, lens):
 
 def phase_serve(torch, cfg, params, engine, counters, perf, *, lens, max_seq,
                 profile=False):
-    """Phases 4, 7 and 19 (6, 9 and 21 with ``profile``, a MoE model's
+    """Phases 4, 7, 19, 25 and 30 (6, 9, 21, 26 and 31 with ``profile``, a
+    MoE model's
     parts under ``MOE_PARTS``' labels): serve 8 requests of the prompt
     lengths ``lens`` through 4 slots, with every launch counter of
     ``counters`` (name -> (module, attribute)) set to 0 just before."""
@@ -837,11 +896,12 @@ def _to(tree, dev):
 
 
 def card_vs_cpu(torch, np, model_lib, perf, time_axis, cfg, S,
-                scalar_norm=False, flash=True):
-    """Phases 5, 8, 20, 27 and 28: float32 logits of one seed's weights on
-    the card and on the CPU over an S-token prefill and 8 greedy decode
-    steps, each side choosing its own tokens, with ``flash_kernel`` as
-    ``flash`` says.  With ``scalar_norm`` the card runs once more with
+                scalar_norm=False, banded=False):
+    """Phases 5, 8, 20, 27, 28, 34 and 35: float32 logits of one seed's
+    weights on the card and on the CPU over an S-token prefill and 8
+    greedy decode steps, each side choosing its own tokens, with
+    ``flash_kernel`` on and ``banded_local`` as ``banded`` says.  With
+    ``scalar_norm`` the card runs once more with
     every RMSNorm input copied one element off 16-byte alignment, so that
     the norm takes its scalar body instead of the vector one."""
     from repro_torch.kernels import rmsnorm as rn
@@ -856,7 +916,8 @@ def card_vs_cpu(torch, np, model_lib, perf, time_axis, cfg, S,
             np.random.default_rng(2).integers(0, cfg.vocab_size, (1, S)),
             device=dev)
         logits_all = []
-        with perf.perf_flags(perf.PerfFlags(flash_kernel=flash)):
+        with perf.perf_flags(perf.PerfFlags(flash_kernel=True,
+                                            banded_local=banded)):
             logits, cache = model_lib.prefill(p, cfg32, tokens)
             # room for 8 more tokens on the time axis of attention caches
             cache = {part: {key: {n: torch.nn.functional.pad(
@@ -978,8 +1039,8 @@ def report_parts(prof, parts, total_ms):
 
 def report_profile(eng_p, stats_p, prof, serve_wall, untraced, kernels,
                    parts=()):
-    """Phases 6, 9 and 21: busy share of the traced serve, the device
-    totals of ``kernels`` (names of ``KERNEL_NAMES``) and of the
+    """Phases 6, 9, 21, 26 and 31: busy share of the traced serve, the
+    device totals of ``kernels`` (names of ``KERNEL_NAMES``) and of the
     ``record_function`` labels ``parts``, and its largest kernels."""
     acts = device_activities(prof)
     check(acts, "the traced serve recorded no device activity")
@@ -1093,7 +1154,7 @@ def phase_grads(torch, ops, ref, counters):
 
 
 def train_profile(torch, trainer, state, step, perf, kernels, backwards):
-    """Phases 12, 15 and 22: one train step of ``trainer`` under
+    """Phases 12, 15, 23 and 33: one train step of ``trainer`` under
     torch.profiler: its device time split into the hand-written forward
     kernels ``kernels`` (names of ``KERNEL_NAMES``; their recompute under
     remat included), the GEMMs outside the backwards of ``backwards``, the
@@ -1163,16 +1224,18 @@ def layer_slots(cfg):
 def block_launches(cfg, slots, *, prefill):
     """The hand-written kernels one pass over the layers ``slots`` launches
     with ``flash_kernel``: a prefill (or a train step's forward) runs flash
-    for an attention layer and the gated norm and the SSD block for a
-    Mamba-2 layer, a decode step the gated norm only (decode attention and
-    the SSD recurrence are plain, as the reference's); every layer ln1, and
-    ln2 where it has an FFN (a MoE, or an MLP of d_ff > 0)."""
+    for a global attention layer (the reference's gate leaves a local one,
+    ``"attn_local"``, on chunked attention) and the gated norm and the SSD
+    block for a Mamba-2 layer, a decode step the gated norm only (decode
+    attention and the SSD recurrence are plain, as the reference's); every
+    layer ln1, and ln2 where it has an FFN (a MoE, or an MLP of d_ff >
+    0)."""
     out = dict.fromkeys(KERNEL_NAMES, 0)
     for kind, mlp_kind in slots:
         if kind == "ssm":
             out["gated_rmsnorm"] += 1
             out["ssd_intra_chunk"] += int(prefill)
-        else:
+        elif kind == "attn":
             out["flash_attention"] += int(prefill)
         out["rmsnorm"] += 2 if mlp_kind == "moe" or cfg.d_ff > 0 else 1
     return out
@@ -1204,8 +1267,9 @@ def step_launches(cfg):
 
 def phase_train(torch, np, counters, registry, perf, smi, arch, flags=(),
                 *, phase):
-    """Phases 11-12 (llsc-100m), 14-15 (mamba2-370m) and 22-23
-    (granite-moe-1b-a400m): ``launch.train.main`` trains ``arch`` at full
+    """Phases 11-12 (llsc-100m), 14-15 (mamba2-370m), 22-23
+    (granite-moe-1b-a400m) and 32-33 (gemma3-1b): ``launch.train.main``
+    trains ``arch`` at full
     width and depth in bfloat16 with float32 masters under the config's
     ``remat`` ("full"), 22 AdamW steps of 8 x 256 tokens, the counters set
     to 0 just before.  Every loss is finite; each step launches exactly
@@ -1406,12 +1470,13 @@ def recorded_routes():
               f"{flips} chose other expert ids")
 
 
-def train_card_vs_cpu(torch, perf, cfg, aux_weights=None, flash=True):
-    """Phases 13, 16, 24 and 28: ``cfg`` in float32 (TF32 off), under its
-    ``remat``, the same float32 masters from one seed on the card and on
-    the CPU, the same batch (1 x 256 tokens) for 2 ``make_train_step``
-    steps (with the MoE auxiliary losses at ``aux_weights``), with
-    ``flash_kernel`` as ``flash`` says, and AdamW's moments in the config's
+def train_card_vs_cpu(torch, perf, cfg, aux_weights=None, banded=False):
+    """Phases 13, 16, 24, 28, 34 and 35: ``cfg`` in float32 (TF32 off),
+    under its ``remat``, the same float32 masters from one seed on the card
+    and on the CPU, the same batch (1 x 256 tokens) for 2
+    ``make_train_step`` steps (with the MoE auxiliary losses at
+    ``aux_weights``), with ``flash_kernel`` on and ``banded_local`` as
+    ``banded`` says, and AdamW's moments in the config's
     ``opt_dtype``.  Losses within 1e-4 relative;
     step-1 gradients within 5e-3 absolute (the reference's gradient
     tolerance) and each leaf's within GRAD_RTOL of its largest; parameters
@@ -1428,7 +1493,8 @@ def train_card_vs_cpu(torch, perf, cfg, aux_weights=None, flash=True):
                                   ocfg, device="cpu").params
     result = {}
     moment = getattr(torch, cfg.opt_dtype)
-    with perf.perf_flags(perf.PerfFlags(flash_kernel=flash)):
+    with perf.perf_flags(perf.PerfFlags(flash_kernel=True,
+                                        banded_local=banded)):
         for dev in ("cpu", "cuda"):
             t0 = time.perf_counter()
             params = _to(masters, dev)
@@ -1845,10 +1911,10 @@ def phase_jamba_checks(torch, np, model_lib, engine, perf):
     1e-4: (a) the whole model at 1 layer (a Mamba-2 layer and a SwiGLU FFN)
     over a 128-token prefill and 8 greedy decode steps, the same tokens;
     (b) the attention block alone (``attention_block_vs_cpu``).  28:
-    reduced jamba (one period of 8, d_head 16, which the flash kernel does
-    not take, so without ``flash_kernel``) in float32, card against CPU:
-    prefill and decode logits, then 2 train steps with bf16 moments and
-    the MoE auxiliary losses, with no expert-route flip.  29: the entry
+    reduced jamba (one period of 8, d_head 16) in float32 with
+    ``flash_kernel``, card against CPU: prefill and decode logits, then 2
+    train steps with bf16 moments and the MoE auxiliary losses, with no
+    expert-route flip.  29: the entry
     points on the card: ``launch.serve`` and ``launch.train`` (20 steps)
     of reduced jamba exit 0."""
     from repro_torch.configs import get_config, reduced_config
@@ -1865,16 +1931,15 @@ def phase_jamba_checks(torch, np, model_lib, engine, perf):
     attention_block_vs_cpu(torch, perf, cfg)
 
     print("=== 28. card vs CPU, reduced jamba-1.5-large-398b (one period of "
-          "8), float32, no flash_kernel: serve logits, then training with "
-          "bf16 moments and aux losses (0.01, 1e-3) ===")
+          "8), float32, flash_kernel (D 16): serve logits, then training "
+          "with bf16 moments and aux losses (0.01, 1e-3) ===")
     small = reduced_config(cfg)
     with recorded_routes() as routes:
         card_vs_cpu(torch, np, model_lib, perf, engine.TIME_AXIS_LEAVES,
-                    small, 64, flash=False)
+                    small, 64)
     check(routes["flips"] == 0, f"{routes['flips']} expert routes differ")
     with recorded_routes() as routes:
-        train_card_vs_cpu(torch, perf, small, aux_weights=(0.01, 1e-3),
-                          flash=False)
+        train_card_vs_cpu(torch, perf, small, aux_weights=(0.01, 1e-3))
     check(routes["flips"] == 0, f"{routes['flips']} expert routes differ")
 
     print("=== 29. the entry points on the card: launch.serve and "
@@ -1882,6 +1947,135 @@ def phase_jamba_checks(torch, np, model_lib, engine, perf):
     rc = launch_serve.main(["--arch", JAMBA, "--reduced"])
     check(rc == 0, f"launch.serve exited {rc}")
     rc = launch_train.main(["--arch", JAMBA, "--reduced", "--steps", "20"])
+    check(rc == 0, f"launch.train exited {rc}")
+
+GEMMA = "gemma3-1b"
+GEMMA_CHECK_LAYERS = 6      # one period: 5 local layers and the global one
+
+
+def phase_gemma_serve(torch, np, model_lib, engine, counters, perf,
+                      registry, smi):
+    """Phases 30-31.  30: from the memory the earlier phases leave (printed
+    after a collection and ``empty_cache``), draw gemma3-1b's bf16 weights
+    at full width and depth (999,812,736 parameters; 4 periods of 5
+    sliding-window layers and a global one, 2 local remainder layers) on
+    the card from a CUDA generator, and serve it with ``flash_kernel`` as
+    phase 4 serves llsc-100m, with a warm-up: prompts of 256 and 640
+    tokens (multiples of 128: the global layers take flash), 32 new tokens
+    each, ``max_seq_len`` 768, so the 640-token requests decode past the
+    512-token window.  The launches are ``serve_launches``': flash 4 a
+    prefill (the global layers; a local layer takes chunked attention, as
+    the reference's gate says), RMSNorm 53 a prefill or decode step.  31:
+    the serve under torch.profiler.  Returns the serve's launch counts."""
+    from repro_torch.configs import get_config
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"memory allocated at the start of the phase: "
+          f"{torch.cuda.memory_allocated() / 2 ** 20:.1f} MiB")
+    cfg = get_config(GEMMA)
+    total = model_lib.count_params(cfg)
+    check(total == 999_812_736, f"gemma3-1b counts {total} parameters")
+    t0 = time.perf_counter()
+    params = model_lib.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    torch.cuda.synchronize()
+    print(f"init of {total} bf16 parameters ({cfg.n_periods} stacked "
+          f"periods of {cfg.layer_pattern}, {cfg.n_remainder} remainder "
+          f"layers) on the card from a CUDA generator: "
+          f"{time.perf_counter() - t0:.1f} s")
+    serve = dict(lens=(256, 640), max_seq=768)
+    phase_serve(torch, cfg, params, engine, counters, perf, **serve)  # warm-up
+    eng, stats, counts = phase_serve(torch, cfg, params, engine, counters,
+                                     perf, **serve)
+    expect = serve_launches(cfg, len(eng.prefill_s), stats["steps"])
+    print(f"[{smi}] gemma3-1b, full width and depth:")
+    report_serve(torch, np, eng, stats, counts, expect, cfg, registry)
+    serve_wall = stats["wall_s"]
+    del eng
+
+    print(f"=== 31. the serve of phase 30 under torch.profiler [{smi}] ===")
+    report_profile(*phase_serve(torch, cfg, params, engine, counters, perf,
+                                profile=True, **serve), serve_wall,
+                   "phase 30", ("flash_attention", "rmsnorm"))
+    return counts
+
+
+def banded_vs_cpu(torch, np, model_lib, perf, cfg, S):
+    """Phase 34 (b): float32 forward of ``S`` tokens, ``flash_kernel`` on,
+    on the CPU and on the card without ``banded_local`` and on the card
+    with it: the hidden states after the final norm and the logits of
+    every 16th position.  Card against CPU and banded against masked
+    within 1e-4."""
+    from repro_torch.models import transformer as tf
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p_cpu = model_lib.init_params(cfg, torch.Generator().manual_seed(0),
+                                  device="cpu", dtype=torch.float32)
+    tokens = np.random.default_rng(3).integers(0, cfg.vocab_size, (1, S))
+    out = {}
+    for dev, banded in (("cpu", False), ("cuda", False), ("cuda", True)):
+        p = _to(p_cpu, dev) if dev == "cuda" else p_cpu
+        t0 = time.perf_counter()
+        with perf.perf_flags(perf.PerfFlags(flash_kernel=True,
+                                            banded_local=banded)):
+            h, _ = model_lib.forward_hidden(
+                p, cfg32, torch.as_tensor(tokens, device=dev))
+            logits = tf._logits(p, cfg32, h[:, ::16])
+        out[(dev, banded)] = (h.cpu(), logits.cpu())
+        check(torch.isfinite(logits).all().item(), "non-finite logits")
+        print(f"  {dev}, banded_local={banded}: {time.perf_counter() - t0:.1f}"
+              " s")
+        del p
+    worst = 0.0
+    for a, b in ((("cuda", False), ("cpu", False)),
+                 (("cuda", True), ("cpu", False)),
+                 (("cuda", True), ("cuda", False))):
+        eh = float((out[a][0] - out[b][0]).abs().max())
+        el = float((out[a][1] - out[b][1]).abs().max())
+        worst = max(worst, eh, el)
+        print(f"  {a} against {b}: hidden {eh:.3e}, logits {el:.3e}")
+    check(worst <= 1e-4, f"the {S}-token forward differs by {worst:.3e}")
+
+
+def phase_gemma_checks(torch, np, model_lib, engine, perf):
+    """Phases 34-35.  34: float32 at full width and 6 of 26 layers (one
+    period: 5 local layers and the global one), card against CPU within
+    1e-4: (a) a 640-token prefill and 8 greedy decode steps past the
+    512-token window, the same tokens; (b) a 1280-token forward with and
+    without ``banded_local`` (past ``attn_chunk`` 1024, so the band
+    engages); (c) 2 train steps, gradients within 1e-4 of each leaf's
+    largest.  35: reduced gemma3 (7 layers, window 8, d_head 16) in float32
+    with ``flash_kernel`` and ``banded_local``, card against CPU: prefill
+    and decode logits, then 2 train steps; and ``launch.serve`` and
+    ``launch.train`` (20 steps) of reduced gemma3 exit 0."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.launch import train as launch_train
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config(GEMMA), n_layers=GEMMA_CHECK_LAYERS)
+    print(f"=== 34. card vs CPU, gemma3-1b full width, {GEMMA_CHECK_LAYERS} "
+          "of 26 layers, float32: (a) a 640-token prefill and 8 decode "
+          "steps, (b) 1280 tokens with and without banded_local, (c) 2 "
+          "train steps ===")
+    card_vs_cpu(torch, np, model_lib, perf, engine.TIME_AXIS_LEAVES, cfg, 640)
+    banded_vs_cpu(torch, np, model_lib, perf, cfg, 1280)
+    gc.collect()
+    train_card_vs_cpu(torch, perf, dataclasses.replace(cfg, dtype="float32"))
+
+    print("=== 35. card vs CPU, reduced gemma3-1b, float32, flash_kernel (D "
+          "16) and banded_local; launch.serve and launch.train --reduced ===")
+    small = reduced_config(get_config(GEMMA))
+    card_vs_cpu(torch, np, model_lib, perf, engine.TIME_AXIS_LEAVES, small,
+                64, banded=True)
+    train_card_vs_cpu(torch, perf, small, banded=True)
+    flags = ["--flags", "flash_kernel,banded_local"]
+    rc = launch_serve.main(["--arch", GEMMA, "--reduced", *flags])
+    check(rc == 0, f"launch.serve exited {rc}")
+    rc = launch_train.main(["--arch", GEMMA, "--reduced", "--steps", "20",
+                            *flags])
     check(rc == 0, f"launch.train exited {rc}")
 
 
@@ -1934,6 +2128,7 @@ def main() -> int:
         libs = dict(zip(_build.SOURCES, pool.map(_build.build,
                                                  _build.SOURCES)))
     print(f"built {sorted(libs)} in {time.perf_counter() - t0:.2f} s")
+    spills = {}
     for name, path in sorted(libs.items()):
         log = path.with_suffix(".log")
         entry = name
@@ -1943,6 +2138,13 @@ def main() -> int:
                 entry = f"{m.group(1)}<{m.group(2)}>"  # args as mangled
             elif "registers" in line or "spill" in line:
                 print(f"  {entry} ptxas: {line.split(':', 1)[-1].strip()}")
+                m = re.search(r"(\d+) bytes spill stores", line)
+                if m:
+                    spills[entry] = int(m.group(1))
+    for entry in NEW_FLASH_INSTANCES:
+        check(spills.get(entry) == 0, f"{entry} spills "
+              f"{spills.get(entry)} bytes (or was not compiled)")
+    print(f"  no spills in {', '.join(NEW_FLASH_INSTANCES)}")
 
     print("=== 3. kernels against their plain versions on the card ===")
     rows = phase_kernels(torch, fa, rn, ref, hw)
@@ -2054,7 +2256,19 @@ def main() -> int:
                           registry, smi)
     phase_jamba_checks(torch, np, model_lib, engine, perf)
 
-    print(f"=== 30. summary (whole run {time.perf_counter() - t_all:.1f} s) ===")
+    print(f"=== 30. serve gemma3-1b, full width and depth, bf16, flash_kernel "
+          f"[{smi}] ===")
+    by_path[f"serve {GEMMA}"] = phase_gemma_serve(
+        torch, np, model_lib, engine, counters, perf, registry, smi)
+    print(f"=== 32. train gemma3-1b, full width and depth, bf16, "
+          f"flash_kernel, remat 'full', through launch.train [{smi}] ===")
+    by_path[f"train {GEMMA}"] = phase_train(
+        torch, np, counters, registry, perf, smi, GEMMA,
+        ("--flags", "flash_kernel"), phase=32)
+    phase_gemma_checks(torch, np, model_lib, engine, perf)
+
+    print(f"=== 36. summary (whole run {time.perf_counter() - t_all:.1f} s) "
+          "===")
     for path, counts in by_path.items():
         print(f"launches, {path}: {counts}")
     for row in rows:

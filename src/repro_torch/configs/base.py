@@ -191,6 +191,7 @@ def list_archs() -> list:
 
 def _ensure_loaded():
     # The port registers the architectures it serves; each slice adds its own.
+    import repro_torch.configs.gemma3_1b  # noqa: F401
     import repro_torch.configs.granite_moe_1b  # noqa: F401
     import repro_torch.configs.jamba15_large  # noqa: F401
     import repro_torch.configs.llsc_100m  # noqa: F401

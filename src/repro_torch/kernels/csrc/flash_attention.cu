@@ -66,13 +66,33 @@
 // GQA by h / G with KV never replicated; ragged S and T masked; inputs
 // read through (batch, seq, head) strides with the last dim contiguous, so
 // [B,S,H,D] views of one qkv buffer are read in place and [B,H,S,D] is the
-// same kernel with two strides swapped.  D is 32, 64 or 128.
+// same kernel with two strides swapped.
+//
+// Head dims: D is 16, 32, 64, 128 or 256, the head dims of the configs
+// the port serves: 16 for every reduced config, 64 (llsc-100m,
+// granite-moe-1b-a400m), 128 (jamba) and 256 (gemma3-1b's global
+// layers).  Each is a multiple of 16, one k-step of mma.m16n8k16; any
+// other D is refused (cudaErrorInvalidValue) and the wrapper raises before
+// the launch.  D = 32 is the test sweep's.
+//
+// D = 256 in bf16 takes its own tiling (`MmaTile`).  The tiling of the
+// smaller D would ask for (64 + 4 * 128) * 264 * 2 = 304,128 bytes of
+// shared memory, past a block's 232,448, and each thread would hold Q's
+// fragments (64 registers) and the output (128) before the scores.  So at
+// D = 256 a KV tile is 32 keys (a ring stage 64: 168,960 bytes), and Q's
+// fragments are not held: each key tile reloads them from shared memory
+// with ldmatrix, 16 x4 loads a warp.  The output stays in registers.
+// D = 16 keeps the common tiling: its padded row of 24 elements (48 bytes)
+// still starts the 8 rows of an ldmatrix matrix at bytes 0, 48, 96, 16,
+// 64, 112, 32, 80 modulo 128, 32 different banks.
 //
 // Registers and spills (ptxas -v for sm_90a, CUDA 12.8, as phase 2 of
-// chip_smoke.py prints them): the bf16 body 128 / 159 / 222 registers at
-// D = 32 / 64 / 128, no spills (8 warps a block, so 256 threads x 222
-// registers fit the SM's 65,536); the fp32 body 72 / 72 / 96, with 16 /
-// 0 / 4 bytes spilled.
+// chip_smoke.py prints them): the bf16 body 111 / 127 / 157 / 222 / 240
+// registers at D = 16 / 32 / 64 / 128 / 256 (8 warps a block, so 256
+// threads x 240 registers fit the SM's 65,536); the fp32 body 48 / 72 /
+// 72 / 96 / 128; no spills in either.  The fp32 body's PV product runs
+// key by key, each weight read once into a register: column by column
+// (each column's sum over the keys in turn) it spills at D = 32 and 128.
 //
 // The fp32 body: one block per (32-row query tile, head, batch), 4
 // threads per row, q, k, v staged in shared memory as fp32 rows padded to
@@ -99,11 +119,28 @@ constexpr int THREADS = BQ * TPR;    // 128
 constexpr float NEG_INF = -1e30f;
 
 constexpr int MMA_BQ = 64;           // bf16 body: query rows per block
-constexpr int MMA_BK = 64;           // keys per KV tile
 constexpr int MMA_SLICES = MMA_BQ / 16;       // 16-row slices, one a warp
 constexpr int MMA_SPLIT = 2;         // warp groups sharing out the KV tiles
-constexpr int MMA_SUPER = MMA_SPLIT * MMA_BK;  // keys of one ring stage
 constexpr int MMA_THREADS = MMA_SLICES * MMA_SPLIT * 32;  // 256
+
+// The bf16 body's tiling by head dim (see the note at the top): keys per
+// KV tile, whether Q's fragments stay in registers for the whole KV loop,
+// and the dynamic shared memory (Q tile and a ring of two stages of K and
+// V, rows padded to D + 8).
+template <int D>
+struct MmaTile {
+  static constexpr int BK = D > 128 ? 32 : 64;
+  static constexpr bool Q_IN_REGS = D <= 128;
+  static constexpr int SUPER = MMA_SPLIT * BK;  // keys of one ring stage
+  static constexpr int SMEM = (MMA_BQ + 4 * SUPER) * (D + 8) * 2;
+  static_assert(D % 16 == 0, "D is a whole number of mma k-steps");
+  static_assert(SMEM <= 232448, "past a block's shared memory");
+  // the groups' merge reuses the ring: (SPLIT - 1) x SLICES x 32 lanes x
+  // (acc, m, l) floats
+  static_assert((MMA_SPLIT - 1) * MMA_SLICES * 32 * (D / 2 + 4) * 4 <=
+                    4 * SUPER * (D + 8) * 2,
+                "the merge does not fit in the ring");
+};
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -209,13 +246,16 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     l_run = alpha * l_run + psum;
     m_run = m_new;
     __syncwarp();                    // a row's probabilities come from its own warp
+    // Key by key, each weight read once: every output column still sums
+    // its keys in order, and no column's weights are held in registers
+    // (at D = 256, 64 accumulators a thread besides them).
 #pragma unroll
-    for (int i = 0; i < DPT; ++i) {
-      const int d = lane + TPR * i;
-      float a = acc[i] * alpha;
-#pragma unroll 16
-      for (int c = 0; c < BK; ++c) a += sp[row * PP + c] * sv[c * DP + d];
-      acc[i] = a;
+    for (int i = 0; i < DPT; ++i) acc[i] *= alpha;
+#pragma unroll 4
+    for (int c = 0; c < BK; ++c) {
+      const float p = sp[row * PP + c];
+#pragma unroll
+      for (int i = 0; i < DPT; ++i) acc[i] += p * sv[c * DP + lane + TPR * i];
     }
   }
 
@@ -241,14 +281,17 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                      Strides qs, Strides ks, Strides vs, Strides os,
                      float scale, int causal) {
   using bf16 = __nv_bfloat16;
+  using Tile = MmaTile<D>;
+  constexpr int BK = Tile::BK;
+  constexpr int SUPER = Tile::SUPER;
   constexpr int SROW = D + 8;        // padded shared row (elements)
   constexpr int CHUNKS = D / 8;      // 16-byte chunks of a row
-  constexpr int NS = MMA_BK / 8;     // 8-key column tiles of the scores
+  constexpr int NS = BK / 8;         // 8-key column tiles of the scores
   constexpr int NO = D / 8;          // 8-wide column tiles of the output
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sq = reinterpret_cast<bf16*>(smem_raw);  // [MMA_BQ][SROW]
-  bf16* sk = sq + MMA_BQ * SROW;                 // [2][MMA_SUPER][SROW]
-  bf16* sv = sk + 2 * MMA_SUPER * SROW;          // [2][MMA_SUPER][SROW]
+  bf16* sk = sq + MMA_BQ * SROW;                 // [2][SUPER][SROW]
+  bf16* sv = sk + 2 * SUPER * SROW;              // [2][SUPER][SROW]
 
   const int tid = threadIdx.x;
   const int warp = tid / 32;
@@ -269,9 +312,9 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
     mma::cp_async16(sq + r * SROW + c, qb + min(s, S - 1) * qs.s + c, s < S);
   }
   auto load_kv = [&](int k0, int stage) {
-    bf16* dk = sk + stage * MMA_SUPER * SROW;
-    bf16* dv = sv + stage * MMA_SUPER * SROW;
-    for (int i = tid; i < MMA_SUPER * CHUNKS; i += MMA_THREADS) {
+    bf16* dk = sk + stage * SUPER * SROW;
+    bf16* dv = sv + stage * SUPER * SROW;
+    for (int i = tid; i < SUPER * CHUNKS; i += MMA_THREADS) {
       const int r = i / CHUNKS, c = (i % CHUNKS) * 8;
       const int t = k0 + r;
       const long long tc = min(t, T_len - 1);
@@ -283,12 +326,14 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
   // Causal: a tile starting past the block's last query row is all masked.
   const int kv_end = causal ? min(T_len, q0 + MMA_BQ) : T_len;
-  const int n_stages = (kv_end + MMA_SUPER - 1) / MMA_SUPER;
+  const int n_stages = (kv_end + SUPER - 1) / SUPER;
   load_kv(0, 0);                     // one group with the Q tile
 
   const int row_lo = q0 + slice * 16;
   const int r0 = row_lo + lane / 4;  // rows of c0, c1; c2, c3 are r0 + 8
-  unsigned qf[D / 16][4];
+  // Q's A fragments: all D / 16 of them held, or one reloaded a k-step
+  unsigned qf[Tile::Q_IN_REGS ? D / 16 : 1][4];
+  const bf16* q_frag = sq + (slice * 16 + lane % 16) * SROW + (lane / 16) * 8;
   float acc[NO][4];
 #pragma unroll
   for (int n = 0; n < NO; ++n)
@@ -300,18 +345,19 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
   for (int j = 0; j < n_stages; ++j) {
     mma::cp_async_wait_all();
     __syncthreads();                 // stage j landed; stage j-1 is consumed
-    if (j + 1 < n_stages) load_kv((j + 1) * MMA_SUPER, (j + 1) % 2);
-    if (j == 0) {
+    if (j + 1 < n_stages) load_kv((j + 1) * SUPER, (j + 1) % 2);
+    if constexpr (Tile::Q_IN_REGS) {
+      if (j == 0) {
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        mma::ldmatrix_x4(qf[kk], sq + (slice * 16 + lane % 16) * SROW +
-                                     kk * 16 + (lane / 16) * 8);
+        for (int kk = 0; kk < D / 16; ++kk)
+          mma::ldmatrix_x4(qf[kk], q_frag + kk * 16);
+      }
     }
-    const int k0 = j * MMA_SUPER + group * MMA_BK;
+    const int k0 = j * SUPER + group * BK;
     if (row_lo >= S || k0 >= kv_end || (causal && k0 > row_lo + 15))
       continue;
-    const bf16* tk = sk + ((j % 2) * MMA_SUPER + group * MMA_BK) * SROW;
-    const bf16* tv = sv + ((j % 2) * MMA_SUPER + group * MMA_BK) * SROW;
+    const bf16* tk = sk + ((j % 2) * SUPER + group * BK) * SROW;
+    const bf16* tv = sv + ((j % 2) * SUPER + group * BK) * SROW;
 
     float s[NS][4];
 #pragma unroll
@@ -320,18 +366,21 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
       for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
+      const int qk = Tile::Q_IN_REGS ? kk : 0;
+      if constexpr (!Tile::Q_IN_REGS)
+        mma::ldmatrix_x4(qf[0], q_frag + kk * 16);
 #pragma unroll
       for (int n = 0; n < NS; n += 2) {
         unsigned kf[4];              // b0, b1 of key tiles n and n + 1
         mma::ldmatrix_x4(kf, tk + (n * 8 + lane % 8 + (lane / 16) * 8) * SROW
                                  + kk * 16 + ((lane / 8) % 2) * 8);
-        mma::mma_bf16_16816(s[n], qf[kk], kf[0], kf[1]);
-        mma::mma_bf16_16816(s[n + 1], qf[kk], kf[2], kf[3]);
+        mma::mma_bf16_16816(s[n], qf[qk], kf[0], kf[1]);
+        mma::mma_bf16_16816(s[n + 1], qf[qk], kf[2], kf[3]);
       }
     }
 
     const bool need_mask =
-        k0 + MMA_BK > T_len || (causal && k0 + MMA_BK - 1 > row_lo);
+        k0 + BK > T_len || (causal && k0 + BK - 1 > row_lo);
     float m_tile[2] = {NEG_INF, NEG_INF};
 #pragma unroll
     for (int n = 0; n < NS; ++n)
@@ -372,7 +421,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
       for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
 
 #pragma unroll
-    for (int kk = 0; kk < MMA_BK / 16; ++kk) {
+    for (int kk = 0; kk < BK / 16; ++kk) {
       // The C fragments of key tiles 2kk and 2kk+1 are the A fragment of
       // keys 16kk .. 16kk+15.
       const float(&lo)[4] = s[2 * kk];
@@ -459,8 +508,7 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
                        int B, int H, int Hk, int S, int T_len, Strides qs,
                        Strides ks, Strides vs, Strides os, float scale,
                        int causal, cudaStream_t stream) {
-  constexpr int smem = (MMA_BQ + 4 * MMA_SUPER) * (D + 8) *
-                       static_cast<int>(sizeof(__nv_bfloat16));
+  constexpr int smem = MmaTile<D>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
@@ -521,16 +569,20 @@ extern "C" int flash_attention_fwd(
     if (!aligned16(q, qs) || !aligned16(k, ks) || !aligned16(v, vs))
       return cudaErrorMisalignedAddress;
     switch (D) {
+      case 16: return launch_mma<16>(FLASH_ARGS);
       case 32: return launch_mma<32>(FLASH_ARGS);
       case 64: return launch_mma<64>(FLASH_ARGS);
       case 128: return launch_mma<128>(FLASH_ARGS);
+      case 256: return launch_mma<256>(FLASH_ARGS);
       default: return cudaErrorInvalidValue;
     }
   }
   switch (D) {
+    case 16: return launch<float, 16>(FLASH_ARGS);
     case 32: return launch<float, 32>(FLASH_ARGS);
     case 64: return launch<float, 64>(FLASH_ARGS);
     case 128: return launch<float, 128>(FLASH_ARGS);
+    case 256: return launch<float, 256>(FLASH_ARGS);
     default: return cudaErrorInvalidValue;
   }
 #undef FLASH_ARGS

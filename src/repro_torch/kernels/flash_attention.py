@@ -6,7 +6,9 @@ Both functions take CUDA tensors only and raise on anything the kernel does
 not take; the CPU path lives in :mod:`repro_torch.kernels.ops`.  bfloat16
 runs on the tensor cores and reads q, k and v with 16-byte copies, so their
 base pointers and (batch, seq, head) strides must be 16-byte aligned;
-float32 is the exactness path (fp32 products).  There is no backward: with
+float32 is the exactness path (fp32 products).  The head dim is one of
+``HEAD_DIMS``, the ones the port's configs use (16 reduced, 64, 128, 256);
+any other raises.  There is no backward: with
 grad enabled, inputs that require grad raise (``kernels.ops`` is the
 differentiable route).  ``launches`` counts the
 kernel launches made through this module.
@@ -22,7 +24,7 @@ from repro_torch.kernels import _build, _guard
 
 launches = 0
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 DTYPES = (torch.float32, torch.bfloat16)
 
 

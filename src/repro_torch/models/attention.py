@@ -1,12 +1,18 @@
-"""GQA attention (counterpart of the GQA part of ``repro.models.attention``).
+"""GQA attention, global and sliding-window (counterpart of the GQA part of
+``repro.models.attention``).
 
-Prefill attention goes to the flash kernel when ``PerfFlags.flash_kernel``
-is set and the reference's gate holds; otherwise, and for decode, it is
-:func:`chunked_attention` in plain PyTorch, as the reference's is jnp.
+Prefill attention of a global, uncapped layer goes to the flash kernel when
+``PerfFlags.flash_kernel`` is set and the reference's gate holds;
+otherwise, and for decode, it is :func:`chunked_attention` in plain
+PyTorch, as the reference's is jnp.  A local (sliding-window) layer has the
+reference's two paths: masked (full-length scores, the window a mask) and
+banded (each query chunk reads only its band of keys), the latter under
+``banded=True`` or the ``banded_local`` PerfFlag.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models.layers import apply_rope_bshd
@@ -16,16 +22,21 @@ F32 = torch.float32
 NEG_INF = -1e30
 
 
-def _attend_block(qc, k, v, q_pos, kv_pos, *, causal, kv_valid_len, scale):
-    """qc [B,C,Hk,G,D]; k,v [B,T,Hk,D]; q_pos [C] or [B,C]; kv_pos [T];
+def _attend_block(qc, k, v, q_pos, kv_pos, *, causal, window, kv_valid_len,
+                  softcap, scale):
+    """qc [B,C,Hk,G,D]; k,v [B,T,Hk,D]; q_pos [C] or [B,C]; kv_pos [T]
+    (negative for the banded path's front padding, always masked);
     kv_valid_len None or [B].  Returns [B,C,Hk,G,D]."""
     scores = torch.einsum("bchgd,bthd->bhgct", qc.to(F32), k.to(F32)) * scale
+    if softcap is not None:
+        scores = softcap * torch.tanh(scores / softcap)
     if q_pos.dim() == 1:
         q_pos = q_pos[None]                                  # [1, C]
-    mask = torch.ones((1, 1, kv_pos.shape[0]), dtype=torch.bool,
-                      device=qc.device)
+    mask = (kv_pos >= 0)[None, None, :]
     if causal:
         mask = mask & (kv_pos[None, None, :] <= q_pos[:, :, None])
+    if window is not None:
+        mask = mask & ((q_pos[:, :, None] - kv_pos[None, None, :]) < window)
     if kv_valid_len is not None:
         mask = mask & (kv_pos[None, None, :] < kv_valid_len[:, None, None])
     scores = torch.where(mask[:, None, None], scores,
@@ -34,13 +45,20 @@ def _attend_block(qc, k, v, q_pos, kv_pos, *, causal, kv_valid_len, scale):
     return torch.einsum("bhgct,bthd->bchgd", weights, v)
 
 
-def chunked_attention(q, k, v, *, causal=True, q_offset=0, kv_valid_len=None,
-                      chunk=1024):
+def chunked_attention(q, k, v, *, causal=True, window=None, q_offset=0,
+                      kv_valid_len=None, softcap=None, chunk=1024,
+                      banded=False):
     """q [B,Sq,H,D]; k,v [B,Skv,Hkv,D] -> [B,Sq,H,D].
 
     Exact softmax per query chunk of ``chunk`` rows.  ``q_offset``: position
     of q[0] in the kv sequence, an int or a per-row [B] tensor (decode:
     cache_len).  ``kv_valid_len``: positions >= it are masked, an int or [B].
+    ``window``: a query attends to the ``window`` positions ending at its
+    own.  ``softcap``: scores become ``softcap * tanh(s / softcap)``.
+    ``banded``: with a window and no ``kv_valid_len``, and more than one
+    chunk, each chunk reads only its band of keys, the reference's ``Wb =
+    chunk + ceil(window / chunk) * chunk`` of them from keys padded in front
+    by ``Wb - chunk`` (and behind to whole chunks); exact for any window.
     """
     B, Sq, H, D = q.shape
     Hk, Skv = k.shape[2], k.shape[1]
@@ -52,14 +70,27 @@ def chunked_attention(q, k, v, *, causal=True, q_offset=0, kv_valid_len=None,
     kvl = None
     if kv_valid_len is not None:
         kvl = torch.as_tensor(kv_valid_len, device=dev).reshape(-1)
-    kv_pos = torch.arange(Skv, device=dev)
+
+    kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
+    if banded and window is not None and kvl is None and Sq > chunk:
+        wb = chunk + -(-window // chunk) * chunk
+        pad = (0, 0, 0, 0, wb - chunk, (-Sq) % chunk)
+        k_pad, v_pad = F.pad(k, pad), F.pad(v, pad)
+    else:
+        wb, kv_pos = None, torch.arange(Skv, device=dev)
     outs = []
     for start in range(0, Sq, chunk):
         qc = qg[:, start:start + chunk]
         ar = torch.arange(start, start + qc.shape[1], device=dev)
         q_pos = q_off[:, None] + ar if q_off.dim() == 1 else q_off + ar
-        outs.append(_attend_block(qc, k, v, q_pos, kv_pos, causal=causal,
-                                  kv_valid_len=kvl, scale=scale))
+        kc, vc = k, v
+        if wb is not None:
+            # band element j holds key position start + j - (wb - chunk)
+            kc, vc = k_pad[:, start:start + wb], v_pad[:, start:start + wb]
+            kv_pos = torch.arange(start - (wb - chunk), start + chunk,
+                                  device=dev)
+        outs.append(_attend_block(qc, kc, vc, q_pos, kv_pos,
+                                  kv_valid_len=kvl, **kw))
     return torch.cat(outs, dim=1).reshape(B, Sq, H, D)
 
 
@@ -73,27 +104,38 @@ def gqa_project_qkv(params, x, n_heads, n_kv_heads, d_head):
             v.reshape(B, S, n_kv_heads, d_head))
 
 
-def _flash_applicable(S: int) -> bool:
-    """The reference's gate (attention.py:200-206) for a global, uncapped
-    layer: the flag is set and ``S`` is a multiple of ``min(128, S)``."""
-    if not _perf().flash_kernel:
+def _flash_applicable(cfg, local: bool, S: int) -> bool:
+    """The reference's gate (attention.py:200-206): the flag is set, the
+    layer is global and uncapped, and ``S`` is a multiple of
+    ``min(128, S)``."""
+    if not _perf().flash_kernel or local or cfg.attn_logit_softcap:
         return False
     block = min(128, S)
     return S % block == 0
 
 
-def gqa_attention(params, x, cfg, *, positions):
-    """Full-sequence (prefill) causal GQA attention.  x [B,S,D] ->
-    ([B,S,D], (k, v))."""
+def _theta(cfg, local: bool) -> float:
+    """The rope base: a local layer's own where the config has one."""
+    return cfg.rope_theta_local if (local and cfg.rope_theta_local) \
+        else cfg.rope_theta
+
+
+def gqa_attention(params, x, cfg, *, local: bool, positions, banded=False):
+    """Full-sequence (prefill) causal GQA attention, global or (``local``)
+    sliding-window.  x [B,S,D] -> ([B,S,D], (k, v))."""
     q, k, v = gqa_project_qkv(params, x, cfg.n_heads, cfg.n_kv_heads,
                               cfg.d_head)
-    q = apply_rope_bshd(q, positions, cfg.rope_theta)
-    k = apply_rope_bshd(k, positions, cfg.rope_theta)
+    theta = _theta(cfg, local)
+    q = apply_rope_bshd(q, positions, theta)
+    k = apply_rope_bshd(k, positions, theta)
     B, S = q.shape[:2]
-    if _flash_applicable(S):
+    if _flash_applicable(cfg, local, S):
         out = ops.flash_attention_bshd(q, k, v, causal=True)
     else:
-        out = chunked_attention(q, k, v, causal=True, chunk=cfg.attn_chunk)
+        out = chunked_attention(
+            q, k, v, causal=True, window=cfg.attn_window if local else None,
+            softcap=cfg.attn_logit_softcap, chunk=cfg.attn_chunk,
+            banded=banded)
     return out.reshape(B, S, -1) @ params["wo"], (k, v)
 
 
@@ -115,18 +157,23 @@ def _decode_positions(cache_len, device):
     return cache_len[:, None].to(torch.int32)                  # [B,1]
 
 
-def gqa_decode(params, x, cfg, cache_k, cache_v, cache_len):
+def gqa_decode(params, x, cfg, cache_k, cache_v, cache_len, *,
+               local: bool):
     """Single-token decode. x [B,1,D]; cache_[kv] [B,T,Hk,D], written in
     place at ``cache_len`` (an int, or a per-row [B] tensor for slots of
-    ragged length).  Returns (out, cache_k, cache_v)."""
+    ragged length).  A local layer's cache is full length too, as the
+    reference's; its window is a mask.  Returns (out, cache_k, cache_v)."""
     q, k, v = gqa_project_qkv(params, x, cfg.n_heads, cfg.n_kv_heads,
                               cfg.d_head)
+    theta = _theta(cfg, local)
     pos = _decode_positions(cache_len, x.device)
-    q = apply_rope_bshd(q, pos, cfg.rope_theta)
-    k = apply_rope_bshd(k, pos, cfg.rope_theta)
+    q = apply_rope_bshd(q, pos, theta)
+    k = apply_rope_bshd(k, pos, theta)
     cache_k = _cache_write(cache_k, k, cache_len)
     cache_v = _cache_write(cache_v, v, cache_len)
     out = chunked_attention(q, cache_k, cache_v, causal=True,
-                            q_offset=cache_len, kv_valid_len=cache_len + 1)
+                            window=cfg.attn_window if local else None,
+                            q_offset=cache_len, kv_valid_len=cache_len + 1,
+                            softcap=cfg.attn_logit_softcap)
     B = x.shape[0]
     return out.reshape(B, 1, -1) @ params["wo"], cache_k, cache_v

@@ -1,5 +1,5 @@
 """Shared layer primitives (counterpart of ``repro.models.layers``):
-the parameter leaf spec, RMSNorm, half-split RoPE, the SwiGLU MLP and the
+the parameter leaf spec, RMSNorm, half-split RoPE, the dense MLP and the
 embedding.
 
 Functions take ``(params, x, ...)`` with ``params`` a dict of tensors.
@@ -73,9 +73,17 @@ def apply_rope_bshd(x, positions, theta: float):
 
 
 def mlp(params, x, act: str):
-    if act != "swiglu":
-        raise NotImplementedError(f"the port's MLP supports swiglu, not {act}")
-    h = F.silu(x @ params["w1"]) * (x @ params["w3"])
+    """The dense FFN: SwiGLU, GeGLU or GELU.  GELU is the tanh
+    approximation, ``jax.nn.gelu``'s default."""
+    h = x @ params["w1"]
+    if act == "swiglu":
+        h = F.silu(h) * (x @ params["w3"])
+    elif act == "geglu":
+        h = F.gelu(h, approximate="tanh") * (x @ params["w3"])
+    elif act == "gelu":
+        h = F.gelu(h, approximate="tanh")
+    else:
+        raise ValueError(act)
     return h @ params["w2"]
 
 

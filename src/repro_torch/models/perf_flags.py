@@ -2,13 +2,15 @@
 
 The field set is the reference's, so ``PerfFlags.parse`` accepts the same
 names; the port acts on ``flash_kernel``, which routes prefill attention
-through the CUDA flash kernel; ``remat_dots``, which makes a ``cfg.remat``
+through the CUDA flash kernel; ``banded_local``, which gives a local
+(sliding-window) layer's prefill the banded path of ``chunked_attention``
+(each query chunk reads only its band of keys), as the reference's
+``_apply_mixer_full`` does; ``remat_dots``, which makes a ``cfg.remat``
 other than ``"none"`` act as ``"dots"``; and ``bf16_grads``, which rounds
 the cotangent of every block's output to bfloat16 in the backward
 (``models/transformer.py::_BF16Cotangent``), as the reference does.  The
 others act only through a device mesh in the reference, which the port
-does not have yet (``banded_local`` comes with local attention).  Defaults
-are all off, as in the reference.
+does not have yet.  Defaults are all off, as in the reference.
 """
 from __future__ import annotations
 

@@ -3,12 +3,13 @@
 
 A model is ``n_periods`` copies of a period of layers plus a remainder.
 Each layer's mixer is the one ``cfg.layer_pattern`` names for its slot:
-GQA attention (``"attn"``) or the Mamba-2 mixer (``"ssm"``), so one period
-may mix both, as jamba's 1:7 attention:Mamba period does.  Its FFN is the
-one ``cfg.mlp_pattern`` names for its slot: the mixture of experts
-(``models/moe.py``) for ``"moe"``, else the SwiGLU MLP; a non-MoE block
-whose ``mlp`` is empty (``d_ff`` 0, as mamba2-370m) has no FFN and never
-reads ``ln2``.  The parameter and cache trees keep the
+global GQA attention (``"attn"``), sliding-window GQA attention
+(``"attn_local"``, gemma3's 5 of every 6) or the Mamba-2 mixer
+(``"ssm"``), so one period may mix them, as jamba's 1:7 attention:Mamba
+period does.  Its FFN is the one ``cfg.mlp_pattern`` names for its slot:
+the mixture of experts (``models/moe.py``) for ``"moe"``, else the dense
+MLP of ``cfg.act``; a non-MoE block whose ``mlp`` is empty (``d_ff`` 0, as
+mamba2-370m) has no FFN and never reads ``ln2``.  The parameter and cache trees keep the
 reference's layout exactly, so that the bridge and the serving splice read
 them the same way::
 
@@ -62,20 +63,18 @@ def model_dtype(cfg) -> torch.dtype:
 
 def check_supported(cfg):
     """The port's model covers dense, MoE (family ``moe``), Mamba-2 (family
-    ``ssm``) and hybrid configs whose layers are global attention or
-    Mamba-2 mixers in any pattern (jamba), with SwiGLU FFNs (or GELU
-    experts where every FFN is MoE, as the reference's ``moe_ffn`` takes
-    them); raise for any feature a later slice brings."""
-    acts = ("swiglu", "gelu") if all(m == "moe" for m in cfg.mlp_pattern) \
-        else ("swiglu",)
-    other = sorted(set(cfg.layer_pattern) - {"attn", "ssm"})
+    ``ssm``) and hybrid configs whose layers are global or sliding-window
+    attention (logits capped or not) or Mamba-2 mixers in any pattern, with
+    SwiGLU, GeGLU or GELU dense FFNs, and SwiGLU or GELU experts (the acts
+    the reference's ``moe_ffn`` takes); raise for any feature a later slice
+    brings."""
+    acts = ("swiglu", "gelu") if "moe" in cfg.mlp_pattern \
+        else ("swiglu", "geglu", "gelu")
     missing = [name for name, present in (
         ("family " + cfg.family,
          cfg.family not in ("dense", "ssm", "moe", "hybrid")),
-        (f"{', '.join(other)} layers", bool(other)),
         ("act " + cfg.act, cfg.act not in acts),
         ("qkv_bias", cfg.qkv_bias),
-        ("attn_logit_softcap", cfg.attn_logit_softcap is not None),
         ("mla", cfg.mla is not None), ("encoder", cfg.encoder is not None),
         ("frontend " + cfg.frontend, cfg.frontend != "none")) if present]
     if missing:
@@ -105,8 +104,9 @@ def _block_spec(cfg, kind, mlp_kind):
         spec["mlp"] = moe_mod.moe_spec(d, cfg.moe)
     elif cfg.d_ff > 0:
         spec["mlp"] = {"w1": Leaf((d, cfg.d_ff), d ** -0.5),
-                       "w2": Leaf((cfg.d_ff, d), cfg.d_ff ** -0.5),
-                       "w3": Leaf((d, cfg.d_ff), d ** -0.5)}
+                       "w2": Leaf((cfg.d_ff, d), cfg.d_ff ** -0.5)}
+        if cfg.act in ("swiglu", "geglu"):
+            spec["mlp"]["w3"] = Leaf((d, cfg.d_ff), d ** -0.5)
     return spec
 
 
@@ -256,16 +256,20 @@ class _BF16Cotangent(torch.autograd.Function):
 def apply_block_full(bp, x, cfg, kind, mlp_kind, positions, *,
                      want_aux=False):
     """Returns (x, cache entry of the layer in the cache's dtypes, aux):
-    aux as ``_apply_mlp`` gives it.  Under the ``bf16_grads`` PerfFlag the
-    block's output goes through ``_BF16Cotangent``."""
+    aux as ``_apply_mlp`` gives it.  A local layer takes the banded path
+    under the ``banded_local`` PerfFlag, as the reference's.
+    Under the ``bf16_grads`` PerfFlag the block's output goes through
+    ``_BF16Cotangent``."""
     h = rmsnorm(bp["ln1"], x, cfg.norm_eps)
     dt = model_dtype(cfg)
     if kind == "ssm":
         y, (conv_tail, state) = ssm_mod.mamba2_forward(bp["mixer"], h, cfg)
         cache = {"conv": conv_tail.to(dt), "ssd": state.to(F32)}
     else:
-        y, (k, v) = attn_mod.gqa_attention(bp["mixer"], h, cfg,
-                                           positions=positions)
+        local = kind == "attn_local"
+        y, (k, v) = attn_mod.gqa_attention(
+            bp["mixer"], h, cfg, local=local, positions=positions,
+            banded=local and _perf().banded_local)
         cache = {"k": k.to(dt), "v": v.to(dt)}
     x, aux = _apply_mlp(bp, x + y, cfg, mlp_kind, want_aux=want_aux)
     if _perf().bf16_grads:
@@ -280,7 +284,8 @@ def apply_block_decode(bp, x, cfg, kind, mlp_kind, cache, cache_len):
                                         cache["ssd"])
     else:
         y, _, _ = attn_mod.gqa_decode(bp["mixer"], h, cfg, cache["k"],
-                                      cache["v"], cache_len)
+                                      cache["v"], cache_len,
+                                      local=kind == "attn_local")
     return _apply_mlp(bp, x + y, cfg, mlp_kind)[0]
 
 

@@ -20,8 +20,9 @@ from repro_torch.models.perf_flags import PerfFlags  # noqa: E402
 
 
 def test_registered_archs():
-    assert list_archs() == ["granite-moe-1b-a400m", "jamba-1.5-large-398b",
-                            "llsc-100m", "mamba2-370m", "qwen3-moe-30b-a3b"]
+    assert list_archs() == ["gemma3-1b", "granite-moe-1b-a400m",
+                            "jamba-1.5-large-398b", "llsc-100m",
+                            "mamba2-370m", "qwen3-moe-30b-a3b"]
 
 
 MOE_ARCHS = ["granite-moe-1b-a400m", "qwen3-moe-30b-a3b"]
@@ -165,23 +166,78 @@ def test_unsupported_features_raise():
 
 @pytest.mark.parametrize("arch,change,match", [
     ("qwen1.5-4b", {}, "qkv_bias"),
-    ("gemma3-1b", {}, "attn_local layers"),
-    ("llsc-100m", {"layer_pattern": ("attn", "attn_local"), "attn_window": 8,
-                   "mlp_pattern": ("mlp", "mlp")}, "attn_local layers"),
+    ("gemma3-1b", {"qkv_bias": True}, "qkv_bias"),
+    ("llsc-100m", {"act": "relu"}, "act relu"),
     ("granite-moe-1b-a400m", {"act": "geglu"}, "act geglu"),
     ("minicpm3-4b", {}, "mla"),
     ("whisper-base", {}, "encoder"),
 ])
 def test_unsupported_mixes_raise(arch, change, match):
-    """QKV bias, local attention (gemma3's, or planted in a dense
-    pattern), other than SwiGLU or GELU experts, MLA and encoders stay
-    unsupported; attention and Mamba-2 layers in one pattern (jamba) do
-    not raise."""
+    """QKV bias (qwen1.5's, or planted in gemma3), an FFN act the reference's
+    ``mlp`` does not know, GeGLU experts (the reference's ``moe_ffn`` takes
+    SwiGLU or GELU), MLA and encoders stay unsupported; attention and
+    Mamba-2 layers in one pattern (jamba), local attention (gemma3) and
+    GeGLU dense FFNs do not raise."""
     cfg = dataclasses.replace(jax_get_config(arch), **change)
     mine = ModelConfig(**{f.name: getattr(cfg, f.name)
                           for f in dataclasses.fields(cfg)})
     with pytest.raises(NotImplementedError, match=match):
         model_lib.count_params(mine)
+
+
+@pytest.mark.parametrize("reduced", [False, True])
+def test_gemma3_config_equals_reference(reduced):
+    """The copy, and its reduced form (window min(512, 8), embed_scale
+    sqrt(64), the local rope base and the pattern kept), equal the
+    reference's field for field."""
+    mine, ref = get_config("gemma3-1b"), jax_get_config("gemma3-1b")
+    if reduced:
+        mine, ref = reduced_config(mine), jax_reduced(ref)
+    assert dataclasses.asdict(mine) == dataclasses.asdict(ref)
+    assert mine.rope_theta_local == 10_000.0 and mine.act == "geglu"
+    assert mine.attn_logit_softcap is None
+    if reduced:
+        assert (mine.attn_window, mine.embed_scale) == (8, 8.0)
+
+
+@pytest.mark.parametrize("variant", ["full", "reduced", "reduced_6_layers",
+                                     "reduced_softcap", "reduced_gelu"])
+def test_gemma3_param_counts_and_flops_equal_reference(variant):
+    """count_params, count_params_analytic and model_flops of the reference:
+    at 26 layers, reduced (7: a period of 6 and one local remainder layer),
+    at one period, with a logit cap (no parameters of its own) and with a
+    GELU FFN (no w3)."""
+    cfg, ref = get_config("gemma3-1b"), jax_get_config("gemma3-1b")
+    if variant != "full":
+        cfg, ref = reduced_config(cfg), jax_reduced(ref)
+    change = {"reduced_6_layers": {"n_layers": 6},
+              "reduced_softcap": {"attn_logit_softcap": 30.0},
+              "reduced_gelu": {"act": "gelu"}}.get(variant, {})
+    cfg = dataclasses.replace(cfg, **change)
+    ref = dataclasses.replace(ref, **change)
+    assert model_lib.count_params(cfg) == jax_model.count_params(ref)
+    for active in (False, True):
+        assert model_lib.count_params_analytic(cfg, active) == \
+            jax_model.count_params_analytic(ref, active)
+    for training in (False, True):
+        assert model_lib.model_flops(cfg, 7, training=training) == \
+            jax_model.model_flops(ref, 7, training=training)
+
+
+def test_gemma3_counts():
+    """999,812,736 parameters: the 262,144 x 1152 embedding (tied) and 26
+    layers of 26,839,296 (two norms, q 1152 x 1024, k and v 1152 x 256, o
+    1024 x 1152, GeGLU 3 x 1152 x 6912), plus the final norm."""
+    cfg = get_config("gemma3-1b")
+    layer = 2 * 1152 + 1152 * (1024 + 2 * 256) + 1024 * 1152 \
+        + 3 * 1152 * 6912
+    assert layer == 26_839_296
+    assert model_lib.count_params(cfg) == 262_144 * 1152 + 26 * layer \
+        + 1152 == 999_812_736
+    assert model_lib.model_flops(cfg, 256, training=True) == \
+        6 * 999_812_736 * 256
+    six = dataclasses.replace(cfg, n_layers=6)
+    assert model_lib.count_params(six) == 262_144 * 1152 + 6 * layer + 1152
 
 
 def test_perf_flags_copy():

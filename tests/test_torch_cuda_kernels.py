@@ -45,7 +45,14 @@ def _close(got, want, dtype):
     (1, 12, 12, 256, 256, 64, True), (2, 4, 2, 100, 100, 64, True),
     (1, 4, 1, 33, 70, 32, False), (1, 12, 12, 1024, 1024, 64, True),
     (1, 4, 2, 16, 16, 64, True), (1, 4, 2, 1, 1, 64, True),
-    (1, 8, 2, 320, 320, 128, True), (1, 64, 8, 256, 256, 128, True)])
+    (1, 8, 2, 320, 320, 128, True), (1, 64, 8, 256, 256, 128, True),
+    # D = 16, every reduced config's head dim
+    (2, 4, 2, 128, 128, 16, True), (1, 4, 1, 33, 70, 16, False),
+    (2, 4, 4, 100, 100, 16, True), (1, 4, 1, 1, 1, 16, True),
+    # D = 256, gemma3-1b's global layers (4 query heads, 1 KV head)
+    (1, 4, 1, 256, 256, 256, True), (1, 4, 1, 640, 640, 256, True),
+    (2, 4, 1, 100, 100, 256, True), (1, 4, 2, 33, 70, 256, False),
+    (1, 4, 1, 1024, 1024, 256, True), (8, 4, 1, 256, 256, 256, True)])
 def test_flash_kernel_matches_plain(dev, B, H, Hk, S, T, D, causal, dtype):
     g = torch.Generator(device=dev).manual_seed(S * D + H)
     q = torch.randn(B, H, S, D, device=dev, generator=g).to(dtype)
@@ -93,6 +100,17 @@ def test_flash_bf16_error_is_the_rounding_of_weights_and_output(dev, S):
     print(f"S {S}: worst error / bound {worst:.3f}, RMS error {rms / u:.3f} u")
     assert worst <= 1, f"worst error / bound {worst:.3f}"
     assert rms <= 0.75 * u, f"RMS error {rms / u:.3f} u"
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("D", [8, 96, 512])
+def test_flash_refuses_other_head_dims(dev, D, dtype):
+    """A head dim outside ``HEAD_DIMS`` raises before any launch."""
+    q = torch.randn(1, 2, 64, D, device=dev).to(dtype)
+    n = fa.launches
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention(q, q, q)
+    assert fa.launches == n
 
 
 def test_flash_bf16_refuses_unaligned_inputs(dev):
