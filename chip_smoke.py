@@ -38,6 +38,13 @@ It imports nothing of JAX or of the JAX package.  Phases:
    16384 and 4 and
    320 rows of 2048, the SSD block at jamba's chunk of 256 heads and at
    two chunks of mamba2-370m; the gated norm refuses a row of 16385;
+   flash at qwen1.5-4b's 20 heads of 128 and phi3-medium-14b's 40 query
+   and 10 KV heads of 128 (S = 128 and 256, and qwen's train step), timed
+   against SDPA with ``enable_gqa``; RMSNorm at
+   rows of 2560 (qwen1.5, minicpm3), 5120 (phi3, the scalar body), 768
+   and 256 (minicpm3's q_norm and kv_norm), and kv_norm's input as it is,
+   256 of rows 288 apart (and 289: the scalar body), timed against
+   ``F.rms_norm``;
 4. serve llsc-100m at full width and depth in bfloat16 with
    ``flash_kernel`` on through ``ServeEngine``: 8 requests (prompts of 128
    and 256 tokens, 32 new tokens each) through 4 slots; the kernels'
@@ -49,8 +56,9 @@ It imports nothing of JAX or of the JAX package.  Phases:
    tokens); then the card once more with every RMSNorm on its scalar body
    (inputs one element off 16-byte alignment), to show how much of the
    error is the vector body's order of summation;
-6. the serve of 4 under ``torch.profiler``: device busy share (device time
-   over the span from the trace's first device activity to its last), the
+6. the serve of 4 under ``torch.profiler``, tracing the device alone:
+   device busy share (device time over the span from the trace's first
+   device activity to its last), the
    device totals of the flash-attention and RMSNorm kernels, and the
    largest kernels;
 7. serve mamba2-370m at full width and depth in bfloat16: 8 requests
@@ -112,9 +120,11 @@ It imports nothing of JAX or of the JAX package.  Phases:
     1e-4, the same tokens), with every layer's top-k expert ids the same on
     both sides (flips counted; the gap of the k-th and (k+1)-th router
     logit printed at each);
-21. the serve of 19 under ``torch.profiler``, as 6, with the device time
-    of the MoE's parts: routing, the sort, the scatter, the expert
-    products and the combine;
+21. the first 4 of 19's requests (one wave through the 4 slots) under
+    ``torch.profiler``, as 6, with the device time of the MoE's parts:
+    routing, the sort, the scatter, the expert products and the combine
+    (labels need the host's operators in the trace, which then takes
+    minutes to read over all 8 requests);
 22. train granite-moe-1b-a400m at full width and depth as 11 (48 flash
     and 97 RMSNorm launches a step), the host-side init timed apart;
 23. one granite train step under ``torch.profiler``, as 12, with the
@@ -163,10 +173,43 @@ It imports nothing of JAX or of the JAX package.  Phases:
     card against CPU: prefill and decode logits, then 2 train steps; and
     ``launch.serve`` and ``launch.train`` (20 steps) of reduced gemma3
     exit 0;
-36. the launches of each main path (the serves of 4, 7, 19, 25 and 30,
-    the train runs of 11, 14, 22 and 32), one ``{"kernels": [...]}`` line
-    (each kernel's launches summed over those paths), the nvidia-smi line,
-    and last the ``{"ok": true, ...}`` line.
+36. after a collection and ``empty_cache``, serve qwen1.5-4b (40 layers
+    of 20 heads of 128 with QKV biases; 3,950,369,280 parameters drawn on
+    the card) at full width and depth in bfloat16 with ``flash_kernel``
+    after a warm-up of 2 requests: prompts of 128 and 256 tokens, 32 new
+    tokens each, ``max_seq_len`` 384; flash = 40 x prefills, rmsnorm = 81
+    x (prefills + decode steps);
+    one decode step's device time against the HBM time of its weights;
+37. the same for phi3-medium-14b (40 query and 10 KV heads of 128;
+    14,659,507,200 parameters, 29.3 GB in bf16);
+38. a serve of the first 4 of 37's requests under ``torch.profiler``, as
+    6, with attention's prefill and decode and the FFN under
+    ``record_function`` labels;
+39. the same as 36 for minicpm3-4b (62 MLA layers; 4,261,902,848
+    parameters): no flash (MLA takes chunked attention, as the
+    reference's), rmsnorm = 249 x (prefills + decode steps): ln1, ln2,
+    q_norm and kv_norm a layer and the final norm;
+40. train qwen1.5-4b at full width and 8 of its 40 layers through
+    ``launch.train.main`` (its config cut to 8 layers), as 11 with
+    ``flash_kernel``: 16 flash and 33 RMSNorm launches a step;
+41. one qwen1.5-4b train step under ``torch.profiler``, as 12;
+42. train minicpm3-4b at full width and 8 of its 62 layers the same way:
+    no flash, 65 RMSNorm launches a step;
+43. one minicpm3-4b train step under ``torch.profiler``, as 12;
+44. float32 at full width and 1 layer, the biases and norm scales planted
+    with nonzero values and values other than one on both sides, card
+    against CPU within 1e-4: a 256-token prefill and 8 greedy decode steps
+    of each of the three, the same tokens; minicpm3-4b's absorbed decode
+    against a naive forward over the same tokens on the card; 2 train
+    steps of qwen1.5-4b and minicpm3-4b, as 13;
+45. reduced qwen1.5-4b, phi3-medium-14b and minicpm3-4b in float32 with
+    ``flash_kernel``, planted, card against CPU: prefill and decode
+    logits, then 2 train steps; and ``launch.serve`` and ``launch.train``
+    (20 steps) of each, reduced, exit 0;
+46. the launches of each main path (the serves of 4, 7, 19, 25, 30, 36,
+    37 and 39, the train runs of 11, 14, 22, 32, 40 and 42), one
+    ``{"kernels": [...]}`` line (each kernel's launches summed over those
+    paths), the nvidia-smi line, and last the ``{"ok": true, ...}`` line.
 
 Any failed check raises, and the script exits non-zero; without a CUDA
 device, or outside a checkout, it prints no result and exits 1.
@@ -248,15 +291,15 @@ def device_activities(prof):
              e.time_range.end) for e in prof.events()
             if e.device_type == DeviceType.CUDA
             and not getattr(e, "is_user_annotation", False)
-            and e.name not in MOE_PARTS]
+            and e.name not in LABELS]
 
 
 def device_ms(fn, iters=100, warmup=10, tries=3):
     """Mean device time of one call: the summed durations of the device
-    activities that ``iters`` calls launch, from a torch.profiler trace.
-    A trace whose activity count is not a whole multiple of ``iters`` has
-    lost records, and is taken again.  Returns (ms, device activities per
-    call)."""
+    activities that ``iters`` calls launch, from a torch.profiler trace of
+    the device alone.  A trace whose activity count is not a whole multiple
+    of ``iters`` has lost records, and is taken again.  Returns (ms, device
+    activities per call)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -264,8 +307,7 @@ def device_ms(fn, iters=100, warmup=10, tries=3):
         fn()
     for _ in range(tries):
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
@@ -388,7 +430,12 @@ def phase_kernels(torch, fa, rn, ref, hw):
         (8, 16, 8, 256, 64, True),
         # jamba-1.5-large-398b (64 query and 8 KV heads of 128): the serve's
         # prefills
-        (1, 64, 8, 128, 128, True), (1, 64, 8, 256, 128, True)]
+        (1, 64, 8, 128, 128, True), (1, 64, 8, 256, 128, True),
+        # qwen1.5-4b (20 heads of 128) and phi3-medium-14b (40 query and 10
+        # KV heads of 128): the serves' prefills and a train step
+        (1, 20, 20, 128, 128, True), (1, 20, 20, 256, 128, True),
+        (1, 40, 10, 128, 128, True), (1, 40, 10, 256, 128, True),
+        (8, 20, 20, 256, 128, True)]
     # D = 16 and 256, with T apart from S: B, H, Hk, S, T, D, causal
     flash_wide = [
         # every reduced config (reduced gemma3: 4 query heads, 1 KV head)
@@ -406,7 +453,12 @@ def phase_kernels(torch, fa, rn, ref, hw):
     rms_cases = [(32, 128), (33, 256), (7, 64), (4, 768), (256, 768),
                  (2048, 768), (4, 1024), (256, 1024), (320, 1024),
                  (2048, 1024), (4, 8192), (256, 8192), (4, 1152),
-                 (256, 1152), (640, 1152), (2048, 1152), (5, 100), (3, 101)]
+                 (256, 1152), (640, 1152), (2048, 1152), (5, 100), (3, 101),
+                 # qwen1.5-4b's and minicpm3-4b's rows (serve, train step),
+                 # phi3-medium-14b's (serve, on the scalar body),
+                 # minicpm3-4b's kv_norm (its q_norm is llsc-100m's 768)
+                 (4, 2560), (256, 2560), (2048, 2560), (4, 5120),
+                 (256, 5120), (4, 256), (256, 256), (2048, 256)]
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[1]
         for B, H, Hk, S, D, causal in flash_cases:
@@ -437,6 +489,14 @@ def phase_kernels(torch, fa, rn, ref, hw):
             errs["rmsnorm"][(dn, rows, d)] = compare(
                 f"rmsnorm {dn} rows{rows} D{d}", rn.rmsnorm(x, s),
                 ref.rmsnorm_ref(x, s), dn)
+        # minicpm3-4b's kv_norm input: the first 256 of 288 columns, rows
+        # 288 elements apart (the vector body), and 289 (the scalar body)
+        for nrows, width in ((4, 288), (256, 288), (2048, 288), (4, 289)):
+            x = randn(nrows, width, dtype=dtype)[:, :256]
+            s = (randn(256, dtype=torch.float32) * 0.1 + 1.0).to(dtype)
+            errs["rmsnorm"][(dn, nrows, 256, width)] = compare(
+                f"rmsnorm {dn} rows{nrows} D256 of rows {width} apart",
+                rn.rmsnorm(x, s), ref.rmsnorm_ref(x, s), dn)
         # rows one element off 16-byte alignment take the scalar body
         x = randn(4 * 768 + 1, dtype=dtype)[1:].view(4, 768)
         s = (randn(768, dtype=torch.float32) * 0.1 + 1.0).to(dtype)
@@ -455,18 +515,24 @@ def phase_kernels(torch, fa, rn, ref, hw):
     # Timings at the main paths' shapes, bf16: the attention of reduced
     # gemma3's prefill of 64 tokens (D 16), of gemma3-1b's global layers (4
     # query heads, 1 KV head of 256) at its prefills of 256 and 640 tokens
-    # and a train step, of jamba's, llsc-100m's and granite-moe-1b-a400m's
-    # prefills of 128 and 256 tokens and of a train step (8 x 256), and a
-    # norm over a decode step's 4 slots beside a
+    # and a train step, of qwen1.5-4b's (20 heads of 128) and
+    # phi3-medium-14b's (40 query, 10 KV heads of 128) prefills of 256
+    # tokens and qwen's train step, of jamba's, llsc-100m's and
+    # granite-moe-1b-a400m's prefills of 128 and 256 tokens and of a train
+    # step (8 x 256), and a norm over a decode step's 4 slots beside a
     # prefill's rows and a train step's 2048, at gemma3's width (1152),
-    # jamba's (8192), llsc-100m's (768) and mamba2-370m's and granite's
-    # (1024), the scale in bf16 as the serves hold it.  The kernels line
-    # keeps llsc-100m's B = 1, S = 256 and 4 rows of 768.
+    # jamba's (8192), mamba2-370m's and granite's (1024), qwen1.5's and
+    # minicpm3's (2560), phi3's (5120), minicpm3's kv_norm (256 of rows
+    # 288 apart) and llsc-100m's and minicpm3's q_norm (768), the scale in
+    # bf16 as the serves hold it.  The kernels line keeps llsc-100m's B =
+    # 1, S = 256 and 4 rows of 768.
     F = torch.nn.functional
     rows = []
     bf16 = torch.bfloat16
     for H, Hk, B, S, D in ((4, 1, 1, 64, 16), (4, 1, 1, 256, 256),
                            (4, 1, 1, 640, 256), (4, 1, 8, 256, 256),
+                           (20, 20, 1, 256, 128), (40, 10, 1, 256, 128),
+                           (20, 20, 8, 256, 128),
                            (64, 8, 1, 128, 128), (64, 8, 1, 256, 128),
                            (16, 8, 8, 256, 64), (16, 8, 1, 128, 64),
                            (16, 8, 1, 256, 64), (12, 12, 8, 256, 64),
@@ -491,15 +557,24 @@ def phase_kernels(torch, fa, rn, ref, hw):
                      max_abs_err=errs["flash_attention"][
                          ("bfloat16", 1, 12, 256, 64, True)],
                      bound_ms=bound * 1e3, bound_by=by, **t))
-    for d, nrows_list in ((1152, (2048, 640, 256, 4)), (8192, (256, 4)),
-                          (1024, (2048, 320, 4)),
-                          (768, (2048, 256, 4))):
+    # then qwen1.5-4b's and minicpm3-4b's width (2560), phi3-medium-14b's
+    # (5120), and minicpm3-4b's kv_norm (256, on rows 288 apart) and q_norm
+    # (768, with llsc-100m's)
+    for d, nrows_list, width in ((1152, (2048, 640, 256, 4), 1152),
+                                 (8192, (256, 4), 8192),
+                                 (1024, (2048, 320, 4), 1024),
+                                 (2560, (2048, 256, 4), 2560),
+                                 (5120, (256, 4), 5120),
+                                 (256, (2048, 256, 4), 288),
+                                 (768, (2048, 256, 4), 768)):
         for nrows in nrows_list:
-            x = randn(nrows, d, dtype=bf16)
+            x = randn(nrows, width, dtype=bf16)[:, :d]
             s = (randn(d, dtype=torch.float32) * 0.1 + 1.0).to(bf16)
             n_bytes = 2 * nrows * d * 2 + d * 2
             bound, by = hw.bound_s(n_bytes, 4 * nrows * d, bf16)
-            t = timed(f"rmsnorm bf16 rows{nrows} D{d} (library: F.rms_norm)",
+            t = timed(f"rmsnorm bf16 rows{nrows} D{d}"
+                      + (f" of rows {width} apart" if width != d else "")
+                      + " (library: F.rms_norm)",
                       dict(ms=lambda: rn.rmsnorm(x, s),
                            plain_ms=lambda: ref.rmsnorm_ref(x, s),
                            library_ms=lambda: F.rms_norm(x, (d,), s, 1e-5)))
@@ -826,15 +901,19 @@ def make_requests(engine_mod, vocab, n, seed, lens):
 
 
 def phase_serve(torch, cfg, params, engine, counters, perf, *, lens, max_seq,
-                profile=False):
-    """Phases 4, 7, 19, 25 and 30 (6, 9, 21, 26 and 31 with ``profile``, a
-    MoE model's
-    parts under ``MOE_PARTS``' labels): serve 8 requests of the prompt
-    lengths ``lens`` through 4 slots, with every launch counter of
-    ``counters`` (name -> (module, attribute)) set to 0 just before."""
+                profile=False, parts=None, requests=8):
+    """Phases 4, 7, 19, 25, 30, 36, 37 and 39 (6, 9, 21, 26, 31 and 38 with
+    ``profile``, the functions of ``parts``, (module, {label: attribute})
+    pairs, under their labels; by default a MoE model's ``MOE_PARTS``):
+    serve ``requests`` requests (8) of the prompt lengths ``lens`` through
+    4 slots, with every launch counter of ``counters`` (name -> (module,
+    attribute)) set to 0 just before.  A profile with no part labelled
+    traces the device alone: tracing the host's operators as well slows
+    the host it measures and takes minutes to read."""
     eng = engine.ServeEngine(cfg, params, engine.EngineConfig(
         slots=4, max_seq_len=max_seq, job_name=f"chip_smoke:{cfg.name}"))
-    for r in make_requests(engine, cfg.vocab_size, 8, seed=1, lens=lens):
+    for r in make_requests(engine, cfg.vocab_size, requests, seed=1,
+                           lens=lens):
         eng.submit(r)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -845,9 +924,15 @@ def phase_serve(torch, cfg, params, engine, counters, perf, *, lens, max_seq,
             from torch.profiler import ProfilerActivity, profile as prof_ctx
 
             from repro_torch.models import moe
-            with labelled(moe, MOE_PARTS if cfg.moe else {}), prof_ctx(
-                    activities=[ProfilerActivity.CPU,
-                                ProfilerActivity.CUDA]) as prof:
+
+            if parts is None:
+                parts = [(moe, MOE_PARTS)] if cfg.moe else []
+            with contextlib.ExitStack() as stack:
+                for module, labels in parts:
+                    stack.enter_context(labelled(module, labels))
+                prof = stack.enter_context(prof_ctx(
+                    activities=[ProfilerActivity.CUDA]
+                    + [ProfilerActivity.CPU] * bool(parts)))
                 stats = eng.run()
                 torch.cuda.synchronize()
             return eng, stats, prof
@@ -889,6 +974,45 @@ def report_serve(torch, np, eng, stats, counts, expect, cfg, registry):
           f"controller: slots 4 -> {d.nppn} ({d.reason})")
 
 
+def grow_time(torch, t, part, n):
+    """Cache leaf ``t`` of ``part`` ("blocks", with the period axis in
+    front, or "rem") with ``n`` zero positions more on its time axis, the
+    one after the batch axis."""
+    axis = 2 if part == "blocks" else 1
+    shape = list(t.shape)
+    shape[axis] = n
+    return torch.cat([t, t.new_zeros(shape)], dim=axis)
+
+
+# Leaves the reference initializes to a constant, by their last key: the
+# QKV biases (zeros) and the norm scales (ones).
+BIASES = ("bq", "bk", "bv")
+NORM_SCALES = ("scale", "q_norm", "kv_norm")
+
+
+def plant(torch, params, seed=7):
+    """``params`` (CPU tensors) with every QKV bias drawn from N(0, 0.5^2)
+    and every norm scale from 1 + N(0, 0.3^2), from a CPU generator of
+    ``seed``: the reference's zeros and ones would let a missing bias add
+    or norm scale pass a card-against-CPU check unseen."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def walk(tree):
+        out = {}
+        for key, leaf in tree.items():
+            if isinstance(leaf, dict):
+                out[key] = walk(leaf)
+            elif key in BIASES + NORM_SCALES:
+                noise = torch.randn(leaf.shape, generator=gen)
+                base, std = (0.0, 0.5) if key in BIASES else (1.0, 0.3)
+                out[key] = (base + std * noise).to(leaf.dtype)
+            else:
+                out[key] = leaf
+        return out
+
+    return walk(params)
+
+
 def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
@@ -896,11 +1020,12 @@ def _to(tree, dev):
 
 
 def card_vs_cpu(torch, np, model_lib, perf, time_axis, cfg, S,
-                scalar_norm=False, banded=False):
-    """Phases 5, 8, 20, 27, 28, 34 and 35: float32 logits of one seed's
-    weights on the card and on the CPU over an S-token prefill and 8
+                scalar_norm=False, banded=False, planted=False):
+    """Phases 5, 8, 20, 27, 28, 34, 35, 44 and 45: float32 logits of one
+    seed's weights on the card and on the CPU over an S-token prefill and 8
     greedy decode steps, each side choosing its own tokens, with
-    ``flash_kernel`` on and ``banded_local`` as ``banded`` says.  With
+    ``flash_kernel`` on and ``banded_local`` as ``banded`` says; with
+    ``planted``, the biases and norm scales drawn by ``plant``.  With
     ``scalar_norm`` the card runs once more with
     every RMSNorm input copied one element off 16-byte alignment, so that
     the norm takes its scalar body instead of the vector one."""
@@ -909,6 +1034,8 @@ def card_vs_cpu(torch, np, model_lib, perf, time_axis, cfg, S,
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     p_cpu = model_lib.init_params(cfg, torch.Generator().manual_seed(0),
                                   device="cpu", dtype=torch.float32)
+    if planted:
+        p_cpu = plant(torch, p_cpu)
 
     def run(dev):
         p = _to(p_cpu, dev) if dev == "cuda" else p_cpu
@@ -920,10 +1047,11 @@ def card_vs_cpu(torch, np, model_lib, perf, time_axis, cfg, S,
                                             banded_local=banded)):
             logits, cache = model_lib.prefill(p, cfg32, tokens)
             # room for 8 more tokens on the time axis of attention caches
-            cache = {part: {key: {n: torch.nn.functional.pad(
-                t, (0, 0, 0, 0, 0, 8)) if n in time_axis else t
-                for n, t in e.items()} for key, e in entries.items()}
-                for part, entries in cache.items()}
+            cache = {part: {key: {n: grow_time(torch, t, part, 8)
+                                  if n in time_axis else t
+                                  for n, t in e.items()}
+                            for key, e in entries.items()}
+                     for part, entries in cache.items()}
             for step in range(9):
                 logits_all.append(logits.cpu())
                 if step == 8:
@@ -1004,6 +1132,25 @@ MOE_PARTS = {"MoE, all": "moe_ffn", "route (top-k, softmax)": "_route",
              "combine": "_combine"}
 
 
+# A dense model's parts, by label: attention in ``models/attention.py``
+# (GQA's or MLA's prefill and decode) and the FFN in
+# ``models/transformer.py``.  Phase 38 profiles phi3-medium-14b's serve
+# with them.
+GQA_PARTS = {"attention (prefill)": "gqa_attention",
+             "attention (decode)": "gqa_decode"}
+MLA_PARTS = {"MLA (prefill)": "mla_attention", "MLA (decode)": "mla_decode"}
+FFN_PARTS = {"FFN (MLP)": "mlp"}
+LABELS = set(MOE_PARTS) | set(GQA_PARTS) | set(MLA_PARTS) | set(FFN_PARTS)
+
+
+def dense_parts(cfg):
+    """The (module, parts) pairs that label a dense model's parts."""
+    from repro_torch.models import attention, transformer
+
+    return [(attention, MLA_PARTS if cfg.mla else GQA_PARTS),
+            (transformer, FFN_PARTS)]
+
+
 @contextlib.contextmanager
 def labelled(module, parts):
     """Each function of ``module`` named in ``parts`` (label -> attribute)
@@ -1035,6 +1182,22 @@ def report_parts(prof, parts, total_ms):
         ms = device_ms_under(prof, lambda name: name == label)
         print(f"  {label}: {ms:.3f} ms device, {100 * ms / total_ms:.2f}% "
               "of the device time")
+
+
+def profile_first_wave(torch, cfg, params, engine, counters, perf, serve,
+                       kernels, parts):
+    """Phases 21 and 38: the first 4 of a serve's 8 requests (one wave
+    through the 4 slots) untraced, then under torch.profiler with the
+    functions of ``parts`` labelled, reported as ``report_profile`` does:
+    labels need the host's operators in the trace, and a trace of both
+    takes minutes to read at some 3,000 device activities a pass."""
+    _, untraced, _ = phase_serve(torch, cfg, params, engine, counters, perf,
+                                 requests=4, **serve)
+    report_profile(*phase_serve(torch, cfg, params, engine, counters, perf,
+                                profile=True, parts=parts, requests=4,
+                                **serve), untraced["wall_s"],
+                   "the 4-request serve", kernels,
+                   [label for _, labels in parts for label in labels])
 
 
 def report_profile(eng_p, stats_p, prof, serve_wall, untraced, kernels,
@@ -1227,7 +1390,9 @@ def block_launches(cfg, slots, *, prefill):
     for a global attention layer (the reference's gate leaves a local one,
     ``"attn_local"``, on chunked attention) and the gated norm and the SSD
     block for a Mamba-2 layer, a decode step the gated norm only (decode
-    attention and the SSD recurrence are plain, as the reference's); every
+    attention and the SSD recurrence are plain, as the reference's); an
+    MLA layer (a config with an ``MLASpec``) runs no flash, in prefill and
+    decode alike, and two more RMSNorms, ``q_norm`` and ``kv_norm``; every
     layer ln1, and ln2 where it has an FFN (a MoE, or an MLP of d_ff >
     0)."""
     out = dict.fromkeys(KERNEL_NAMES, 0)
@@ -1235,6 +1400,8 @@ def block_launches(cfg, slots, *, prefill):
         if kind == "ssm":
             out["gated_rmsnorm"] += 1
             out["ssd_intra_chunk"] += int(prefill)
+        elif cfg.mla is not None:
+            out["rmsnorm"] += 2
         elif kind == "attn":
             out["flash_attention"] += int(prefill)
         out["rmsnorm"] += 2 if mlp_kind == "moe" or cfg.d_ff > 0 else 1
@@ -1266,11 +1433,12 @@ def step_launches(cfg):
 
 
 def phase_train(torch, np, counters, registry, perf, smi, arch, flags=(),
-                *, phase):
+                *, phase, layers=None):
     """Phases 11-12 (llsc-100m), 14-15 (mamba2-370m), 22-23
-    (granite-moe-1b-a400m) and 32-33 (gemma3-1b): ``launch.train.main``
-    trains ``arch`` at full
-    width and depth in bfloat16 with float32 masters under the config's
+    (granite-moe-1b-a400m), 32-33 (gemma3-1b), 40-41 (qwen1.5-4b) and 42-43
+    (minicpm3-4b): ``launch.train.main`` trains ``arch`` at full
+    width and depth (``layers`` of them where given: the launcher's config
+    cut to that depth) in bfloat16 with float32 masters under the config's
     ``remat`` ("full"), 22 AdamW steps of 8 x 256 tokens, the counters set
     to 0 just before.  Every loss is finite; each step launches exactly
     ``step_launches``; the registry holds the job's duty in (0, 1], from
@@ -1302,6 +1470,10 @@ def phase_train(torch, np, counters, registry, perf, smi, arch, flags=(),
             return state
 
     launch_train.Trainer = Recorded
+    get_config = launch_train.get_config
+    if layers is not None:
+        launch_train.get_config = lambda name: dataclasses.replace(
+            get_config(name), n_layers=layers)
     try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1315,6 +1487,7 @@ def phase_train(torch, np, counters, registry, perf, smi, arch, flags=(),
                   counters.items()}
     finally:
         launch_train.Trainer = trainer_mod.Trainer
+        launch_train.get_config = get_config
     check(rc == 0 and len(made) == 1, f"launch.train exited {rc}")
     trainer = made[0]
     cfg = trainer.cfg
@@ -1339,7 +1512,8 @@ def phase_train(torch, np, counters, registry, perf, smi, arch, flags=(),
     med = float(np.median(times))
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
     print(f"losses {losses[0]:.4f} -> {losses[-1]:.4f}, all finite")
-    print(f"[{smi}] train {arch} bf16, {batch} x {seq} tokens a step: "
+    print(f"[{smi}] train {arch} ({cfg.n_layers} layers) bf16, {batch} x "
+          f"{seq} tokens a step: "
           f"median step {med * 1e3:.3f} ms over steps 3-{steps} (min "
           f"{times.min() * 1e3:.3f}, max {times.max() * 1e3:.3f}; first two "
           f"{trainer.history[0]['time_s'] * 1e3:.1f} and "
@@ -1470,8 +1644,10 @@ def recorded_routes():
               f"{flips} chose other expert ids")
 
 
-def train_card_vs_cpu(torch, perf, cfg, aux_weights=None, banded=False):
-    """Phases 13, 16, 24, 28, 34 and 35: ``cfg`` in float32 (TF32 off),
+def train_card_vs_cpu(torch, perf, cfg, aux_weights=None, banded=False,
+                      planted=False):
+    """Phases 13, 16, 24, 28, 34, 35, 44 and 45: ``cfg`` in float32 (TF32
+    off), with ``planted`` the biases and norm scales drawn by ``plant``,
     under its ``remat``, the same float32 masters from one seed on the card
     and on the CPU, the same batch (1 x 256 tokens) for 2
     ``make_train_step`` steps (with the MoE auxiliary losses at
@@ -1491,6 +1667,8 @@ def train_card_vs_cpu(torch, perf, cfg, aux_weights=None, banded=False):
     batch = SyntheticLM(DataConfig(cfg.vocab_size, 256, 1, 0)).batch(0)
     masters = ts.init_train_state(cfg, torch.Generator().manual_seed(0),
                                   ocfg, device="cpu").params
+    if planted:
+        masters = plant(torch, masters)
     result = {}
     moment = getattr(torch, cfg.opt_dtype)
     with perf.perf_flags(perf.PerfFlags(flash_kernel=True,
@@ -1723,8 +1901,8 @@ def phase_granite_serve(torch, np, model_lib, engine, counters, perf,
     against the CPU at full width and 4 of the 24 layers over a 128-token
     prefill (capacity 40 of 128 x 8 assignments over 32 experts: tokens
     drop) and 8 greedy decode steps, tolerance 1e-4, and every layer's
-    top-k expert ids the same on both sides.  21: the serve of 19 under
-    torch.profiler, with the MoE's parts.  Returns (the serve's launch
+    top-k expert ids the same on both sides.  21: the first 4 requests of
+    19 under torch.profiler, with the MoE's parts.  Returns (the serve's launch
     counts, the config)."""
     from repro_torch.configs import get_config
 
@@ -1750,7 +1928,6 @@ def phase_granite_serve(torch, np, model_lib, engine, counters, perf,
           "the engine's duty does not count the active parameters")
     print(f"duty from {active} active parameters of "
           f"{model_lib.count_params(cfg)}")
-    serve_wall = stats["wall_s"]
 
     print("=== 20. card vs CPU, granite-moe-1b-a400m full width, 4 of 24 "
           "layers, float32 ===")
@@ -1760,10 +1937,12 @@ def phase_granite_serve(torch, np, model_lib, engine, counters, perf,
     check(routes["flips"] == 0, f"{routes['flips']} expert routes differ "
           "between the card and the CPU")
 
-    print(f"=== 21. the serve of phase 19 under torch.profiler [{smi}] ===")
-    report_profile(*phase_serve(torch, cfg, params, engine, counters, perf,
-                                profile=True, **serve), serve_wall,
-                   "phase 19", ("flash_attention", "rmsnorm"), MOE_PARTS)
+    print(f"=== 21. the first 4 requests of phase 19 under torch.profiler "
+          f"[{smi}] ===")
+    from repro_torch.models import moe
+
+    profile_first_wave(torch, cfg, params, engine, counters, perf, serve,
+                       ("flash_attention", "rmsnorm"), [(moe, MOE_PARTS)])
     return counts, cfg
 
 
@@ -1787,8 +1966,6 @@ def phase_jamba_serve(torch, np, model_lib, engine, counters, perf, hw,
     time against its bound: the bytes of the weights it reads (every leaf
     but the embedding table, of which it reads 4 rows) at the HBM rate.
     Returns the serve's launch counts."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.configs import get_config
     from repro_torch.models.transformer import leaves
 
@@ -1827,21 +2004,33 @@ def phase_jamba_serve(torch, np, model_lib, engine, counters, perf, hw,
     report_profile(*phase_serve(torch, cfg, params, engine, counters, perf,
                                 profile=True, **serve), serve_wall,
                    "phase 25", tuple(KERNEL_NAMES), MOE_PARTS)
-    caches = model_lib.init_cache(cfg, 4, serve["max_seq"], device="cuda")
+    decode_vs_hbm(torch, model_lib, hw, cfg, params, smi, serve["max_seq"])
+    return counts
+
+
+def decode_vs_hbm(torch, model_lib, hw, cfg, params, smi, max_seq):
+    """Phases 26 and 36-39: the device time of one decode step of 4 slots
+    at 300 tokens (10 steps in one trace, over 10: the count of device
+    activities a step varies, so ``device_ms``' check does not apply),
+    against its bound: the bytes of the weights it reads (every leaf but
+    the embedding table, of which it reads 4 rows) at the HBM rate."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models.transformer import leaves
+
+    caches = model_lib.init_cache(cfg, 4, max_seq, device="cuda")
     tok = torch.zeros(4, 1, dtype=torch.int64, device="cuda")
     lens = torch.full((4,), 300, device="cuda")
-    # the device time of 10 decode steps in one trace, over 10: the count of
-    # device activities a step varies, so device_ms's check does not apply
     for _ in range(3):
         model_lib.decode_step(params, cfg, tok, caches, lens)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(10):
             model_lib.decode_step(params, cfg, tok, caches, lens)
         torch.cuda.synchronize()
     acts = device_activities(prof)
     ms, n = sum(a[1] for a in acts) / 10 / 1e3, len(acts) / 10
+    n_bytes = sum(t.numel() * t.element_size() for t in leaves(params))
     emb = params["embed"]
     read = n_bytes - emb.numel() * emb.element_size() \
         + 4 * emb.shape[1] * emb.element_size()
@@ -1849,7 +2038,6 @@ def phase_jamba_serve(torch, np, model_lib, engine, counters, perf, hw,
           f"{n:g} device activities; the weights it reads, {read} bytes, take "
           f"{read / hw.HBM_BW * 1e3:.3f} ms at {hw.HBM_BW / 1e12:.2f} TB/s "
           f"({100 * read / hw.HBM_BW * 1e3 / ms:.1f}% of the bound)")
-    return counts
 
 
 def attention_block_vs_cpu(torch, perf, cfg):
@@ -2079,6 +2267,168 @@ def phase_gemma_checks(torch, np, model_lib, engine, perf):
     check(rc == 0, f"launch.train exited {rc}")
 
 
+# qwen1.5-4b (QKV bias), phi3-medium-14b (40 query and 10 KV heads) and
+# minicpm3-4b (MLA), with their parameter counts and the launches a
+# prefill, and a prefill or decode step, makes at full depth (flash,
+# RMSNorm): phases 36-45.  (QPM: qwen1.5, phi3, minicpm3.)
+QPM = {"qwen1.5-4b": (3_950_369_280, 40, 81),
+           "phi3-medium-14b": (14_659_507_200, 40, 81),
+           "minicpm3-4b": (4_261_902_848, 0, 249)}
+QPM_TRAIN_LAYERS = 8    # (flash, RMSNorm) a train step at that depth:
+QPM_STEP = {"qwen1.5-4b": (16, 33), "minicpm3-4b": (0, 65)}
+
+
+def phase_qpm_serve(torch, np, model_lib, engine, counters, perf, hw,
+                    registry, smi, arch, profile_phase=None):
+    """Phases 36, 37 and 39: from the memory the earlier phases leave
+    (printed after a collection and ``empty_cache``), draw ``arch``'s bf16
+    weights at full width and depth on the card from a CUDA generator (the
+    init timed apart; phi3-medium-14b's 14,659,507,200 parameters are 29.3
+    GB), and serve it with ``flash_kernel`` as phase 4 serves llsc-100m,
+    after a warm-up of 2 requests (one of each prompt length): prompts of
+    128 and 256 tokens (multiples of 128, so qwen's and phi3's layers take
+    flash), 32 new tokens each, ``max_seq_len`` 384.  The launches are
+    ``serve_launches``': flash 40 a prefill and RMSNorm 81 a prefill or
+    decode step for qwen1.5 and phi3; for minicpm3 no flash (MLA takes
+    chunked attention, as the reference's) and RMSNorm 249 (4 a layer:
+    ln1, ln2, q_norm, kv_norm, and the final norm).  Then one decode step's
+    device time against the HBM time of its weights (``decode_vs_hbm``);
+    with ``profile_phase``, the first 4 requests under torch.profiler with
+    attention and the FFN labelled (``profile_first_wave``, phase 38).  Returns the serve's launch counts."""
+    from repro_torch.configs import get_config
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"memory allocated at the start of the phase: "
+          f"{torch.cuda.memory_allocated() / 2 ** 20:.1f} MiB")
+    cfg = get_config(arch)
+    n_params, flash, norms = QPM[arch]
+    total = model_lib.count_params(cfg)
+    check(total == n_params, f"{arch} counts {total} parameters")
+    t0 = time.perf_counter()
+    params = model_lib.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    torch.cuda.synchronize()
+    print(f"init of {total} bf16 parameters ({cfg.n_layers} layers) on the "
+          f"card from a CUDA generator: {time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2 ** 20:.1f} MiB allocated")
+    serve = dict(lens=(128, 256), max_seq=384)
+    phase_serve(torch, cfg, params, engine, counters, perf, requests=2,
+                **serve)  # warm-up
+    eng, stats, counts = phase_serve(torch, cfg, params, engine, counters,
+                                     perf, **serve)
+    n_pre, n_dec = len(eng.prefill_s), stats["steps"]
+    expect = serve_launches(cfg, n_pre, n_dec)
+    check({k: v for k, v in expect.items() if v}
+          == {k: v for k, v in (("flash_attention", flash * n_pre),
+                                ("rmsnorm", norms * (n_pre + n_dec))) if v},
+          f"serve_launches of {arch}: {expect}")
+    print(f"[{smi}] {arch}, full width and depth:")
+    report_serve(torch, np, eng, stats, counts, expect, cfg, registry)
+    del eng
+    decode_vs_hbm(torch, model_lib, hw, cfg, params, smi, serve["max_seq"])
+    if profile_phase:
+        print(f"=== {profile_phase}. the first 4 requests of {arch} under "
+              f"torch.profiler [{smi}] ===")
+        profile_first_wave(torch, cfg, params, engine, counters, perf, serve,
+                           ("flash_attention", "rmsnorm"), dense_parts(cfg))
+    del params
+    return counts
+
+
+def absorbed_vs_naive(torch, np, model_lib, perf, cfg, S):
+    """Phase 44 (b): float32 on the card, an S-token prefill and 8 greedy
+    decode steps of ``cfg`` (MLA: the decode steps run the absorbed form),
+    then one naive forward over the prompt and the 8 chosen tokens: the
+    logits of its positions S - 1 to S + 7 against those of the prefill
+    and of each decode step, within 1e-4."""
+    from repro_torch.models import transformer as tf
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p = _to(plant(torch, model_lib.init_params(
+        cfg, torch.Generator().manual_seed(0), device="cpu",
+        dtype=torch.float32)), "cuda")
+    tokens = torch.as_tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (1, S)), device="cuda")
+    steps, chosen, stepwise = 8, [], []
+    with perf.perf_flags(perf.PerfFlags(flash_kernel=True)):
+        logits, cache = model_lib.prefill(p, cfg32, tokens)
+        cache = {part: {key: {n: grow_time(torch, t, part, steps)
+                              for n, t in e.items()}
+                        for key, e in entries.items()}
+                 for part, entries in cache.items()}
+        for step in range(steps + 1):
+            stepwise.append(logits)
+            if step == steps:
+                break
+            chosen.append(torch.argmax(logits, dim=-1))
+            logits, cache = model_lib.decode_step(
+                p, cfg32, chosen[-1][:, None], cache, S + step)
+        full = torch.cat([tokens, torch.stack(chosen, dim=1)], dim=1)
+        h, _ = model_lib.forward_hidden(p, cfg32, full)
+        naive = tf._logits(p, cfg32, h[:, S - 1:])
+    errs = [float((naive[:, i] - stepwise[i]).abs().max())
+            for i in range(steps + 1)]
+    print(f"  {cfg.name}, {cfg.n_layers} layer(s), on the card: naive "
+          f"forward over {S + steps} tokens against the prefill and the "
+          f"{steps} absorbed decode steps: max |naive - stepwise| "
+          + ", ".join(f"{e:.3e}" for e in errs) + " (tol 1e-4)")
+    check(torch.isfinite(naive).all().item(), "non-finite naive logits")
+    check(max(errs) <= 1e-4, "the absorbed decode differs from the naive "
+          "attention on the card")
+
+
+def phase_qpm_checks(torch, np, model_lib, engine, perf):
+    """Phases 44-45.  44: float32 at full width and 1 layer (every kind of
+    leaf: the stacked layer holds the biases, the MLA projections and
+    norms), biases and norm scales planted (``plant``), card against CPU
+    within 1e-4: (a) a 256-token prefill and 8 greedy decode steps of each
+    of the three, the same tokens; (b) minicpm3-4b's absorbed decode
+    against the naive attention on the card; (c) 2 train steps of
+    qwen1.5-4b and minicpm3-4b, gradients within 1e-4 of each leaf's
+    largest.  45: the reduced configs in float32 with ``flash_kernel`` (D
+    16), planted, card against CPU: prefill and decode logits, then 2
+    train steps; and ``launch.serve`` and ``launch.train`` (20 steps) of
+    each, reduced, exit 0."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.launch import train as launch_train
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("=== 44. card vs CPU at full width, 1 layer, float32, biases and "
+          "norm scales planted: (a) a 256-token prefill and 8 decode steps "
+          "of qwen1.5-4b, phi3-medium-14b and minicpm3-4b, (b) minicpm3-4b's "
+          "absorbed decode against the naive attention, (c) 2 train steps "
+          "of qwen1.5-4b and minicpm3-4b ===")
+    for arch in QPM:
+        card_vs_cpu(torch, np, model_lib, perf, engine.TIME_AXIS_LEAVES,
+                    dataclasses.replace(get_config(arch), n_layers=1), 256,
+                    planted=True)
+        gc.collect()
+    absorbed_vs_naive(torch, np, model_lib, perf, dataclasses.replace(
+        get_config("minicpm3-4b"), n_layers=1), 256)
+    for arch in QPM_STEP:
+        train_card_vs_cpu(torch, perf, dataclasses.replace(
+            get_config(arch), n_layers=1, dtype="float32"), planted=True)
+        gc.collect()
+
+    print("=== 45. card vs CPU, reduced qwen1.5-4b, phi3-medium-14b and "
+          "minicpm3-4b, float32, flash_kernel (D 16), planted; launch.serve "
+          "and launch.train --reduced ===")
+    for arch in QPM:
+        small = reduced_config(get_config(arch))
+        card_vs_cpu(torch, np, model_lib, perf, engine.TIME_AXIS_LEAVES,
+                    small, 64, planted=True)
+        train_card_vs_cpu(torch, perf, small, planted=True)
+        flags = ["--flags", "flash_kernel"]
+        rc = launch_serve.main(["--arch", arch, "--reduced", *flags])
+        check(rc == 0, f"launch.serve {arch} exited {rc}")
+        rc = launch_train.main(["--arch", arch, "--reduced", "--steps", "20",
+                                *flags])
+        check(rc == 0, f"launch.train {arch} exited {rc}")
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke: run from the root of a checkout (src/repro_torch "
@@ -2267,7 +2617,32 @@ def main() -> int:
         ("--flags", "flash_kernel"), phase=32)
     phase_gemma_checks(torch, np, model_lib, engine, perf)
 
-    print(f"=== 36. summary (whole run {time.perf_counter() - t_all:.1f} s) "
+    for phase, arch in ((36, "qwen1.5-4b"), (37, "phi3-medium-14b"),
+                        (39, "minicpm3-4b")):
+        print(f"=== {phase}. serve {arch}, full width and depth, bf16, "
+              f"flash_kernel [{smi}] ===")
+        by_path[f"serve {arch}"] = phase_qpm_serve(
+            torch, np, model_lib, engine, counters, perf, hw, registry, smi,
+            arch, profile_phase=38 if arch == "phi3-medium-14b" else None)
+    for phase, arch in ((40, "qwen1.5-4b"), (42, "minicpm3-4b")):
+        print(f"=== {phase}. train {arch}, full width, "
+              f"{QPM_TRAIN_LAYERS} layers, bf16, remat 'full', through "
+              f"launch.train [{smi}] ===")
+        gc.collect()
+        torch.cuda.empty_cache()
+        counts = phase_train(
+            torch, np, counters, registry, perf, smi, arch,
+            ("--flags", "flash_kernel") if arch == "qwen1.5-4b" else (),
+            phase=phase, layers=QPM_TRAIN_LAYERS)
+        flash, norms = QPM_STEP[arch]
+        check(counts["flash_attention"] == 22 * flash
+              and counts["rmsnorm"] == 22 * norms,
+              f"{arch}: {counts} in 22 steps, not {flash} flash and {norms} "
+              "RMSNorm a step")
+        by_path[f"train {arch}, {QPM_TRAIN_LAYERS} layers"] = counts
+    phase_qpm_checks(torch, np, model_lib, engine, perf)
+
+    print(f"=== 46. summary (whole run {time.perf_counter() - t_all:.1f} s) "
           "===")
     for path, counts in by_path.items():
         print(f"launches, {path}: {counts}")

@@ -196,6 +196,9 @@ def _ensure_loaded():
     import repro_torch.configs.jamba15_large  # noqa: F401
     import repro_torch.configs.llsc_100m  # noqa: F401
     import repro_torch.configs.mamba2_370m  # noqa: F401
+    import repro_torch.configs.minicpm3_4b  # noqa: F401
+    import repro_torch.configs.phi3_medium_14b  # noqa: F401
+    import repro_torch.configs.qwen15_4b  # noqa: F401
     import repro_torch.configs.qwen3_moe_30b  # noqa: F401
 
 

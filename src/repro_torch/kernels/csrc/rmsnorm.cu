@@ -33,6 +33,12 @@
 //   * Every other width, or a row that is not 16-byte aligned, takes the
 //     scalar body (`rmsnorm_kernel`): one warp walks one row, four rows a
 //     block, reading its row a second time from L1/L2 for the output.
+//   * x takes a row stride (elements between rows; the last dimension is
+//     contiguous), as y and z of the gated norm do: MLA's kv_norm
+//     (minicpm3-4b) normalises the first 256 columns of a 288-wide
+//     projection, rows 288 elements apart, a whole number of vectors, so
+//     the vector body takes them; a stride that is not takes the scalar
+//     body.
 //   * The gated norm's vector body (`gated_rmsnorm_vec_kernel`) is the
 //     same cure: one block per row, y, z and the scale loaded as 16-byte
 //     vectors into registers with every load issued before the first use,
@@ -69,8 +75,8 @@
 // scale is in that dtype or, with bfloat16 activations, float32: the
 // reference keeps a 1-D scale in fp32 under its cast_params
 // (repro/train/train_step.py:30) and applies it in fp32, as here.  out is
-// contiguous [rows, D].  ptxas (sm_90a, CUDA 12.8): every instance 23-80
-// registers, no spills.
+// contiguous [rows, D] whatever x's row stride.  ptxas (sm_90a, CUDA
+// 12.8): every instance 23-80 registers, no spills.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -118,11 +124,12 @@ template <typename T> __device__ __forceinline__ float silu(float z) {
 template <typename T, typename S>
 __global__ void __launch_bounds__(WARPS * 32)
 rmsnorm_kernel(const T* __restrict__ x, const S* __restrict__ scale,
-               T* __restrict__ out, int rows, int d, float eps) {
+               T* __restrict__ out, int rows, int d, long long x_stride,
+               float eps) {
   const int lane = threadIdx.x % 32;
   const int row = blockIdx.x * WARPS + threadIdx.x / 32;
   if (row >= rows) return;           // the whole warp leaves together
-  const T* xr = x + static_cast<long long>(row) * d;
+  const T* xr = x + row * x_stride;
   T* orow = out + static_cast<long long>(row) * d;
   float ss = 0.f;
   for (int i = lane; i < d; i += 32) {
@@ -209,7 +216,7 @@ __device__ __forceinline__ float block_sum(float ss) {
 template <typename T, typename S, int W, int V>
 __global__ void __launch_bounds__(W * 32)
 rmsnorm_vec_kernel(const T* __restrict__ x, const S* __restrict__ scale,
-                   T* __restrict__ out, int d, float eps) {
+                   T* __restrict__ out, int d, long long x_stride, float eps) {
   constexpr int E = 16 / sizeof(T);  // elements a vector
   const int nvec = d / E;
   const long long row = blockIdx.x;
@@ -218,7 +225,7 @@ rmsnorm_vec_kernel(const T* __restrict__ x, const S* __restrict__ scale,
 #pragma unroll
   for (int v = 0; v < V; ++v) {      // every load issued first
     const int i = threadIdx.x + v * W * 32;
-    xv[v] = load_vec<T, E>(x + row * d, i, i < nvec);
+    xv[v] = load_vec<T, E>(x + row * x_stride, i, i < nvec);
     sv[v] = load_vec<S, E>(scale, i, i < nvec);
   }
   float ss = 0.f;
@@ -247,10 +254,11 @@ rmsnorm_vec_kernel(const T* __restrict__ x, const S* __restrict__ scale,
 
 template <typename T, typename S, int W, int V>
 cudaError_t launch_vec(const void* x, const void* scale, void* out, int rows,
-                       int d, float eps, cudaStream_t stream) {
+                       int d, long long x_stride, float eps,
+                       cudaStream_t stream) {
   rmsnorm_vec_kernel<T, S, W, V><<<rows, W * 32, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const S*>(scale),
-      static_cast<T*>(out), d, eps);
+      static_cast<T*>(out), d, x_stride, eps);
   return cudaGetLastError();
 }
 
@@ -260,12 +268,14 @@ bool aligned16(const void* p) {
 
 template <typename T, typename S>
 cudaError_t launch(const void* x, const void* scale, void* out, int rows,
-                   int d, float eps, cudaStream_t stream) {
+                   int d, long long x_stride, float eps, cudaStream_t stream) {
   constexpr int E = 16 / sizeof(T);
   const int nvec = d / E;
-  if (d % E == 0 && nvec <= VEC_MAX_W * 32 * VEC_MAX_V && aligned16(x) &&
+  if (d % E == 0 && x_stride % E == 0 &&
+      nvec <= VEC_MAX_W * 32 * VEC_MAX_V && aligned16(x) &&
       aligned16(scale) && aligned16(out)) {  // W warps a row, V vectors a thread
-#define VEC(W, V) launch_vec<T, S, W, V>(x, scale, out, rows, d, eps, stream)
+#define VEC(W, V) launch_vec<T, S, W, V>(x, scale, out, rows, d, x_stride, \
+                                         eps, stream)
     if (nvec <= 32) return VEC(1, 1);
     if (nvec <= 64) return VEC(1, 2);
     if (nvec <= 96) return VEC(1, 3);
@@ -278,7 +288,7 @@ cudaError_t launch(const void* x, const void* scale, void* out, int rows,
   const int blocks = (rows + WARPS - 1) / WARPS;
   rmsnorm_kernel<T, S><<<blocks, WARPS * 32, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const S*>(scale),
-      static_cast<T*>(out), rows, d, eps);
+      static_cast<T*>(out), rows, d, x_stride, eps);
   return cudaGetLastError();
 }
 
@@ -417,20 +427,21 @@ cudaError_t launch_gated(const void* y, const void* z, const void* scale,
 
 }  // namespace
 
-// x, out [rows, d] contiguous; scale [d].  bf16: 1 for bfloat16 x and out,
-// 0 for float32; scale_f32: 1 for a float32 scale with bfloat16 x, 0 for a
-// scale in x's dtype.  Returns a cudaError_t (0 on success).
+// x [rows, d] with row stride x_stride (elements; the last dimension
+// contiguous), out [rows, d] contiguous; scale [d].  bf16: 1 for bfloat16
+// x and out, 0 for float32; scale_f32: 1 for a float32 scale with bfloat16
+// x, 0 for a scale in x's dtype.  Returns a cudaError_t (0 on success).
 extern "C" int rmsnorm_fwd(const void* x, const void* scale, void* out,
                            int bf16, int scale_f32, int rows, int d,
-                           float eps, void* stream) {
-  if (rows <= 0 || d <= 0 || (scale_f32 && !bf16))
+                           long long x_stride, float eps, void* stream) {
+  if (rows <= 0 || d <= 0 || x_stride < d || (scale_f32 && !bf16))
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (!bf16) return launch<float, float>(x, scale, out, rows, d, eps, st);
-  if (scale_f32)
-    return launch<__nv_bfloat16, float>(x, scale, out, rows, d, eps, st);
-  return launch<__nv_bfloat16, __nv_bfloat16>(x, scale, out, rows, d, eps,
-                                              st);
+#define ARGS x, scale, out, rows, d, x_stride, eps, st
+  if (!bf16) return launch<float, float>(ARGS);
+  if (scale_f32) return launch<__nv_bfloat16, float>(ARGS);
+  return launch<__nv_bfloat16, __nv_bfloat16>(ARGS);
+#undef ARGS
 }
 
 // y [rows, d] with row stride y_stride, z [rows, d] with row stride

@@ -31,7 +31,7 @@ GATED_MAX_WIDTH = 16384
 def _kernel():
     fn = _build.load("rmsnorm").rmsnorm_fwd
     fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
-                   + [ctypes.c_float, ctypes.c_void_p])
+                   + [ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -63,46 +63,49 @@ def _check_dtypes(name, x, scale):
                      "dtype, or float32 with bfloat16 input")
 
 
-def _rows(t, name, d):
+def _rows(kernel, t, name, d):
     """``t`` [..., d] as a [rows, d] view with one row stride (the last
-    dimension contiguous); raises when its rows have no single stride."""
+    dimension contiguous); ``kernel`` raises when its rows have no single
+    stride."""
     if t.shape[-1] != d or t.stride(-1) != 1:
-        raise ValueError(f"gated_rmsnorm: {name} {tuple(t.shape)} must end in "
-                         f"a contiguous dimension of {d}")
+        raise ValueError(f"{kernel}: {name} {tuple(t.shape)} must end in a "
+                         f"contiguous dimension of {d}")
     try:
         rows = t.view(-1, d)
     except RuntimeError:
-        raise ValueError(f"gated_rmsnorm: the rows of {name} (strides "
+        raise ValueError(f"{kernel}: the rows of {name} (strides "
                          f"{t.stride()}) have no single stride") from None
     return rows, (rows.stride(0) if rows.shape[0] > 1 else d)
 
 
 def rmsnorm(x, scale, eps: float = 1e-5):
-    """x [..., D] contiguous; scale [D] in x's dtype, or float32 with
-    bfloat16 x -> x's shape and dtype."""
+    """x [..., D] with one stride between rows and a contiguous last
+    dimension (MLA's ``kv_norm`` reads a slice of a wider projection);
+    scale [D] in x's dtype, or float32 with bfloat16 x.  Returns a
+    contiguous tensor of x's shape and dtype."""
     global launches
     _guard.refuse_autograd("rmsnorm", x, scale)
     scale_f32 = _check_dtypes("rmsnorm", x, scale)
     for name, t in (("x", x), ("scale", scale)):
         if not t.is_cuda:
             raise ValueError(f"rmsnorm: {name} is not a CUDA tensor")
-        if not t.is_contiguous():
-            raise ValueError(f"rmsnorm: {name} must be contiguous")
     if x.device != scale.device:
         raise ValueError("rmsnorm: x and scale on different devices")
     if x.dim() == 0 or scale.shape != (x.shape[-1],):
         raise ValueError(f"rmsnorm: scale {tuple(scale.shape)} does not match "
                          f"x {tuple(x.shape)}")
-    out = torch.empty_like(x)
-    d = x.shape[-1]
-    rows = x.numel() // d if d else 0
-    if rows == 0:
+    if not scale.is_contiguous():
+        raise ValueError("rmsnorm: scale must be contiguous")
+    out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
         return out
+    d = x.shape[-1]
+    x2, x_stride = _rows("rmsnorm", x, "x", d)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _kernel()(x.data_ptr(), scale.data_ptr(), out.data_ptr(),
+        err = _kernel()(x2.data_ptr(), scale.data_ptr(), out.data_ptr(),
                         int(x.dtype == torch.bfloat16), int(scale_f32),
-                        rows, d, float(eps), stream)
+                        x2.shape[0], d, x_stride, float(eps), stream)
     if err != 0:
         raise RuntimeError(f"rmsnorm kernel launch failed: CUDA error {err}")
     launches += 1
@@ -139,8 +142,8 @@ def gated_rmsnorm(y, z, scale, eps: float = 1e-5):
     out = torch.empty(y.shape, dtype=y.dtype, device=y.device)
     if out.numel() == 0:
         return out
-    y2, y_stride = _rows(y, "y", d)
-    z2, z_stride = _rows(z, "z", d)
+    y2, y_stride = _rows("gated_rmsnorm", y, "y", d)
+    z2, z_stride = _rows("gated_rmsnorm", z, "z", d)
     with torch.cuda.device(y.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _gated_kernel()(y2.data_ptr(), z2.data_ptr(), scale.data_ptr(),

@@ -1,5 +1,6 @@
-"""GQA attention, global and sliding-window (counterpart of the GQA part of
-``repro.models.attention``).
+"""GQA attention, global and sliding-window, with or without QKV bias, and
+multi-head latent attention (counterpart of ``repro.models.attention``
+but for its encoder-decoder cross attention).
 
 Prefill attention of a global, uncapped layer goes to the flash kernel when
 ``PerfFlags.flash_kernel`` is set and the reference's gate holds;
@@ -8,6 +9,12 @@ PyTorch, as the reference's is jnp.  A local (sliding-window) layer has the
 reference's two paths: masked (full-length scores, the window a mask) and
 banded (each query chunk reads only its band of keys), the latter under
 ``banded=True`` or the ``banded_local`` PerfFlag.
+
+MLA (minicpm3) never takes flash, as in the reference: prefill and
+training materialize each head's key and value from the latent and run
+:func:`chunked_attention` (query and key heads of 96, value heads of 64);
+decode attends in the latent space (:func:`mla_decode`), its cache the
+normalized latent ``ckv`` and the shared rope key ``krope``.
 """
 from __future__ import annotations
 
@@ -15,7 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.models.layers import apply_rope_bshd
+from repro_torch.models.layers import apply_rope_bshd, rmsnorm
 from repro_torch.models.perf_flags import current as _perf
 
 F32 = torch.float32
@@ -48,7 +55,8 @@ def _attend_block(qc, k, v, q_pos, kv_pos, *, causal, window, kv_valid_len,
 def chunked_attention(q, k, v, *, causal=True, window=None, q_offset=0,
                       kv_valid_len=None, softcap=None, chunk=1024,
                       banded=False):
-    """q [B,Sq,H,D]; k,v [B,Skv,Hkv,D] -> [B,Sq,H,D].
+    """q, k [B,S(kv),H(kv),D]; v [B,Skv,Hkv,Dv] -> [B,Sq,H,Dv] (MLA's value
+    heads are narrower than its query and key heads; the scale is D's).
 
     Exact softmax per query chunk of ``chunk`` rows.  ``q_offset``: position
     of q[0] in the kv sequence, an int or a per-row [B] tensor (decode:
@@ -91,14 +99,21 @@ def chunked_attention(q, k, v, *, causal=True, window=None, q_offset=0,
                                   device=dev)
         outs.append(_attend_block(qc, kc, vc, q_pos, kv_pos,
                                   kv_valid_len=kvl, **kw))
-    return torch.cat(outs, dim=1).reshape(B, Sq, H, D)
+    return torch.cat(outs, dim=1).reshape(B, Sq, H, v.shape[-1])
 
 
 def gqa_project_qkv(params, x, n_heads, n_kv_heads, d_head):
+    """The biases, where the tree has them (qwen1.5), are added after the
+    product in the model dtype, as the reference does: a fused ``addmm``
+    would add them in the product's fp32 epilogue and round otherwise."""
     B, S, _ = x.shape
     q = x @ params["wq"]
     k = x @ params["wk"]
     v = x @ params["wv"]
+    if "bq" in params:
+        q = q + params["bq"]
+        k = k + params["bk"]
+        v = v + params["bv"]
     return (q.reshape(B, S, n_heads, d_head),
             k.reshape(B, S, n_kv_heads, d_head),
             v.reshape(B, S, n_kv_heads, d_head))
@@ -177,3 +192,88 @@ def gqa_decode(params, x, cfg, cache_k, cache_v, cache_len, *,
                             softcap=cfg.attn_logit_softcap)
     B = x.shape[0]
     return out.reshape(B, 1, -1) @ params["wo"], cache_k, cache_v
+
+
+# --------------------------------------------------------------------------
+# MLA (multi-head latent attention)
+# --------------------------------------------------------------------------
+
+
+def _mla_qkv_full(params, x, cfg):
+    """The naive MLA path (train and prefill): each head's key and value
+    materialized from the latent.  Returns (q_nope, q_rope, k_nope,
+    k_rope [B,S,1,rope], v, ckv)."""
+    spec = cfg.mla
+    B, S, _ = x.shape
+    H, nope = cfg.n_heads, spec.qk_nope_head_dim
+    cq = rmsnorm({"scale": params["q_norm"]}, x @ params["wq_a"],
+                 cfg.norm_eps)
+    q = (cq @ params["wq_b"]).reshape(B, S, H, spec.qk_head_dim)
+    q_nope, q_rope = q.split([nope, spec.qk_rope_head_dim], dim=-1)
+    ckv, k_rope = (x @ params["wkv_a"]).split(
+        [spec.kv_lora_rank, spec.qk_rope_head_dim], dim=-1)
+    # a strided view (rows rank + rope apart), which the norm kernel reads
+    ckv = rmsnorm({"scale": params["kv_norm"]}, ckv, cfg.norm_eps)
+    kv = (ckv @ params["wkv_b"]).reshape(B, S, H, nope + spec.v_head_dim)
+    k_nope, v = kv.split([nope, spec.v_head_dim], dim=-1)
+    return q_nope, q_rope, k_nope, k_rope[:, :, None, :], v, ckv
+
+
+def mla_attention(params, x, cfg, *, positions):
+    """MLA for train and prefill: rope on the rope halves only, the one
+    rope key broadcast to every head.  x [B,S,D] -> ([B,S,D], (ckv
+    [B,S,rank], k_rope [B,S,rope])) for the cache."""
+    spec = cfg.mla
+    B, S, _ = x.shape
+    q_nope, q_rope, k_nope, k_rope, v, ckv = _mla_qkv_full(params, x, cfg)
+    q_rope = apply_rope_bshd(q_rope, positions, cfg.rope_theta)
+    k_rope = apply_rope_bshd(k_rope, positions, cfg.rope_theta)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope.expand(
+        *k_nope.shape[:-1], spec.qk_rope_head_dim)], dim=-1)
+    out = chunked_attention(q, k, v, causal=True, chunk=cfg.attn_chunk)
+    return out.reshape(B, S, -1) @ params["wo"], (ckv, k_rope[:, :, 0])
+
+
+def mla_decode(params, x, cfg, cache_ckv, cache_krope, cache_len):
+    """Absorbed MLA decode (the DeepSeek-V2 trick): ``wkv_b``'s key half
+    folds into the query and its value half is applied after the softmax,
+    so the step attends over the latent cache.  x [B,1,D]; cache_ckv
+    [B,T,rank] and cache_krope [B,T,rope], written in place at
+    ``cache_len`` (an int or a per-row [B] tensor).  The scores are taken
+    in fp32 (the reference's ``preferred_element_type``).  Returns (out,
+    cache_ckv, cache_krope)."""
+    spec = cfg.mla
+    B, H = x.shape[0], cfg.n_heads
+    nope, rank = spec.qk_nope_head_dim, spec.kv_lora_rank
+    cq = rmsnorm({"scale": params["q_norm"]}, x @ params["wq_a"],
+                 cfg.norm_eps)
+    q = (cq @ params["wq_b"]).reshape(B, 1, H, spec.qk_head_dim)
+    q_nope, q_rope = q.split([nope, spec.qk_rope_head_dim], dim=-1)
+    pos = _decode_positions(cache_len, x.device)
+    q_rope = apply_rope_bshd(q_rope, pos, cfg.rope_theta)
+    ckv_new, krope_new = (x @ params["wkv_a"]).split(
+        [rank, spec.qk_rope_head_dim], dim=-1)
+    ckv_new = rmsnorm({"scale": params["kv_norm"]}, ckv_new, cfg.norm_eps)
+    krope_new = apply_rope_bshd(krope_new[:, :, None, :], pos,
+                                cfg.rope_theta)[:, :, 0, :]
+    cache_ckv = _cache_write(cache_ckv, ckv_new, cache_len)
+    cache_krope = _cache_write(cache_krope, krope_new, cache_len)
+
+    wkv_b = params["wkv_b"].reshape(rank, H, nope + spec.v_head_dim)
+    w_uk, w_uv = wkv_b[:, :, :nope], wkv_b[:, :, nope:]
+    q_lat = torch.einsum("bqhn,rhn->bqhr", q_nope, w_uk)
+    scores = (torch.einsum("bqhr,btr->bhqt", q_lat.to(F32),
+                           cache_ckv.to(F32))
+              + torch.einsum("bqhe,bte->bhqt", q_rope.to(F32),
+                             cache_krope.to(F32))) * spec.qk_head_dim ** -0.5
+    kv_pos = torch.arange(cache_ckv.shape[1], device=x.device)
+    if isinstance(cache_len, int):
+        valid = (kv_pos <= cache_len)[None, None, None, :]
+    else:
+        valid = (kv_pos[None, :] <= cache_len[:, None])[:, None, None, :]
+    scores = torch.where(valid, scores, torch.full_like(scores, NEG_INF))
+    weights = torch.softmax(scores, dim=-1).to(cache_ckv.dtype)
+    out_lat = torch.einsum("bhqt,btr->bqhr", weights, cache_ckv)
+    out = torch.einsum("bqhr,rhv->bqhv", out_lat, w_uv)
+    return out.reshape(B, 1, -1) @ params["wo"], cache_ckv, cache_krope

@@ -6,7 +6,10 @@ Each layer's mixer is the one ``cfg.layer_pattern`` names for its slot:
 global GQA attention (``"attn"``), sliding-window GQA attention
 (``"attn_local"``, gemma3's 5 of every 6) or the Mamba-2 mixer
 (``"ssm"``), so one period may mix them, as jamba's 1:7 attention:Mamba
-period does.  Its FFN is the one ``cfg.mlp_pattern`` names for its slot:
+period does.  An attention layer of a config with an ``MLASpec``
+(minicpm3) is multi-head latent attention instead, and one of a config
+with ``qkv_bias`` (qwen1.5) adds biases to its projections.  Its FFN is
+the one ``cfg.mlp_pattern`` names for its slot:
 the mixture of experts (``models/moe.py``) for ``"moe"``, else the dense
 MLP of ``cfg.act``; a non-MoE block whose ``mlp`` is empty (``d_ff`` 0, as
 mamba2-370m) has no FFN and never reads ``ln2``.  The parameter and cache trees keep the
@@ -19,8 +22,9 @@ them the same way::
               "rem": {str(i): leaves[B, ...]}}
 
 with cache leaves ``k``, ``v`` [B,T,Hk,Dh] in the model dtype for an
-attention layer, and ``conv`` [B,K-1,C] in the model dtype and ``ssd``
-[B,G,HG,P,N] in float32 for a Mamba-2 layer.
+attention layer (``ckv`` [B,T,kv_lora_rank] and ``krope``
+[B,T,qk_rope_head_dim] for an MLA layer), and ``conv`` [B,K-1,C] in the
+model dtype and ``ssd`` [B,G,HG,P,N] in float32 for a Mamba-2 layer.
 
 The reference scans over the period axis; here a Python loop takes layer
 ``i`` as a view ``leaf[i]`` of each stacked leaf.  Decode writes the cache
@@ -50,7 +54,7 @@ from repro_torch import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.layers import Leaf, embed, mlp, rmsnorm
+from repro_torch.models.layers import Leaf, embed, mlp, rmsnorm, zeros
 from repro_torch.models.perf_flags import current as _perf
 from repro_torch.models.perf_flags import perf_flags
 
@@ -64,18 +68,17 @@ def model_dtype(cfg) -> torch.dtype:
 def check_supported(cfg):
     """The port's model covers dense, MoE (family ``moe``), Mamba-2 (family
     ``ssm``) and hybrid configs whose layers are global or sliding-window
-    attention (logits capped or not) or Mamba-2 mixers in any pattern, with
-    SwiGLU, GeGLU or GELU dense FFNs, and SwiGLU or GELU experts (the acts
-    the reference's ``moe_ffn`` takes); raise for any feature a later slice
-    brings."""
+    attention (logits capped or not, with or without QKV bias, or MLA) or
+    Mamba-2 mixers in any pattern, with SwiGLU, GeGLU or GELU dense FFNs,
+    and SwiGLU or GELU experts (the acts the reference's ``moe_ffn``
+    takes); raise for any feature a later slice brings."""
     acts = ("swiglu", "gelu") if "moe" in cfg.mlp_pattern \
         else ("swiglu", "geglu", "gelu")
     missing = [name for name, present in (
         ("family " + cfg.family,
          cfg.family not in ("dense", "ssm", "moe", "hybrid")),
         ("act " + cfg.act, cfg.act not in acts),
-        ("qkv_bias", cfg.qkv_bias),
-        ("mla", cfg.mla is not None), ("encoder", cfg.encoder is not None),
+        ("encoder", cfg.encoder is not None),
         ("frontend " + cfg.frontend, cfg.frontend != "none")) if present]
     if missing:
         raise NotImplementedError(
@@ -94,11 +97,17 @@ def _block_spec(cfg, kind, mlp_kind):
             "ln2": {"scale": Leaf((d,))}}
     if kind == "ssm":
         spec["mixer"] = ssm_mod.mamba2_spec(d, cfg.ssm)
+    elif cfg.mla is not None:
+        spec["mixer"] = _mla_spec(d, cfg.n_heads, cfg.mla)
     else:
         spec["mixer"] = {"wq": Leaf((d, hd), d ** -0.5),
                          "wk": Leaf((d, kvd), d ** -0.5),
                          "wv": Leaf((d, kvd), d ** -0.5),
                          "wo": Leaf((hd, d), hd ** -0.5)}
+        if cfg.qkv_bias:
+            spec["mixer"].update(bq=Leaf((hd,), fixed=zeros),
+                                 bk=Leaf((kvd,), fixed=zeros),
+                                 bv=Leaf((kvd,), fixed=zeros))
     spec["mlp"] = {}    # attention-free SSM blocks (mamba2) have no FFN
     if mlp_kind == "moe":
         spec["mlp"] = moe_mod.moe_spec(d, cfg.moe)
@@ -108,6 +117,21 @@ def _block_spec(cfg, kind, mlp_kind):
         if cfg.act in ("swiglu", "geglu"):
             spec["mlp"]["w3"] = Leaf((d, cfg.d_ff), d ** -0.5)
     return spec
+
+
+def _mla_spec(d, H, mla):
+    """The reference's ``init_mla``: the latent projections and their
+    norms (ones), and ``wo`` from the H value heads."""
+    qk, vd = mla.qk_head_dim, mla.v_head_dim
+    rank = mla.kv_lora_rank
+    return {"wq_a": Leaf((d, mla.q_lora_rank), d ** -0.5),
+            "q_norm": Leaf((mla.q_lora_rank,)),
+            "wq_b": Leaf((mla.q_lora_rank, H * qk), mla.q_lora_rank ** -0.5),
+            "wkv_a": Leaf((d, rank + mla.qk_rope_head_dim), d ** -0.5),
+            "kv_norm": Leaf((rank,)),
+            "wkv_b": Leaf((rank, H * (mla.qk_nope_head_dim + vd)),
+                          rank ** -0.5),
+            "wo": Leaf((H * vd, d), (H * vd) ** -0.5)}
 
 
 def _tree_map(fn, spec):
@@ -265,6 +289,10 @@ def apply_block_full(bp, x, cfg, kind, mlp_kind, positions, *,
     if kind == "ssm":
         y, (conv_tail, state) = ssm_mod.mamba2_forward(bp["mixer"], h, cfg)
         cache = {"conv": conv_tail.to(dt), "ssd": state.to(F32)}
+    elif cfg.mla is not None:
+        y, (ckv, krope) = attn_mod.mla_attention(bp["mixer"], h, cfg,
+                                                 positions=positions)
+        cache = {"ckv": ckv.to(dt), "krope": krope.to(dt)}
     else:
         local = kind == "attn_local"
         y, (k, v) = attn_mod.gqa_attention(
@@ -282,6 +310,9 @@ def apply_block_decode(bp, x, cfg, kind, mlp_kind, cache, cache_len):
     if kind == "ssm":
         y, _, _ = ssm_mod.mamba2_decode(bp["mixer"], h, cfg, cache["conv"],
                                         cache["ssd"])
+    elif cfg.mla is not None:
+        y, _, _ = attn_mod.mla_decode(bp["mixer"], h, cfg, cache["ckv"],
+                                      cache["krope"], cache_len)
     else:
         y, _, _ = attn_mod.gqa_decode(bp["mixer"], h, cfg, cache["k"],
                                       cache["v"], cache_len,
@@ -490,6 +521,11 @@ def _block_cache(cfg, kind, lead, B, T, device):
                                            H // spec.n_groups,
                                            spec.head_dim, spec.d_state),
                                    dtype=F32, device=device)}
+    if cfg.mla is not None:
+        return {"ckv": torch.zeros(lead + (B, T, cfg.mla.kv_lora_rank),
+                                   dtype=dt, device=device),
+                "krope": torch.zeros(lead + (B, T, cfg.mla.qk_rope_head_dim),
+                                     dtype=dt, device=device)}
     shape = lead + (B, T, cfg.n_kv_heads, cfg.d_head)
     return {n: torch.zeros(shape, dtype=dt, device=device) for n in ("k", "v")}
 

@@ -24,8 +24,9 @@ from repro_torch.models import model as model_lib
 from repro_torch.models.transformer import leaves
 from repro_torch.monitor import device_figures, publish_step_utilization
 
-# cache leaves with a time axis; the others (conv, ssd) are per-row states
-TIME_AXIS_LEAVES = ("k", "v")
+# cache leaves with a time axis (attention's k and v, MLA's latent ckv and
+# rope key krope); the others (conv, ssd) are per-row states
+TIME_AXIS_LEAVES = ("k", "v", "ckv", "krope")
 
 
 @dataclasses.dataclass
@@ -101,8 +102,9 @@ class ServeEngine:
     # ------------------------------------------------------------------
     def _prefill_one(self, req: Request, caches, slot: int):
         """Prefill one request and splice its cache rows into slot ``slot``
-        by leaf name, as the reference does: ``k`` and ``v`` fill the time
-        axis up to the prompt length and are zeroed past it; ``conv`` and
+        by leaf name, as the reference does: ``k`` and ``v`` (``ckv`` and
+        ``krope`` for MLA) fill the time axis up to the prompt length and
+        are zeroed past it; ``conv`` and
         ``ssd`` states are copied whole.  Returns (prompt_len,
         first_token): the first generated token comes from the prefill
         logits (re-feeding the last prompt token through decode would

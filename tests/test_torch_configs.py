@@ -7,6 +7,7 @@ import pytest
 pytest.importorskip("torch")
 
 from repro.configs import get_config as jax_get_config  # noqa: E402
+from repro.configs.base import EncoderSpec as JaxEncoderSpec  # noqa: E402
 from repro.configs import reduced_config as jax_reduced  # noqa: E402
 from repro.core import overload as jax_overload  # noqa: E402
 from repro.insights.rules import recommend_nppn as jax_recommend  # noqa: E402
@@ -22,7 +23,8 @@ from repro_torch.models.perf_flags import PerfFlags  # noqa: E402
 def test_registered_archs():
     assert list_archs() == ["gemma3-1b", "granite-moe-1b-a400m",
                             "jamba-1.5-large-398b", "llsc-100m",
-                            "mamba2-370m", "qwen3-moe-30b-a3b"]
+                            "mamba2-370m", "minicpm3-4b", "phi3-medium-14b",
+                            "qwen1.5-4b", "qwen3-moe-30b-a3b"]
 
 
 MOE_ARCHS = ["granite-moe-1b-a400m", "qwen3-moe-30b-a3b"]
@@ -159,25 +161,36 @@ def test_param_count_equals_reference(reduced):
 
 
 def test_unsupported_features_raise():
-    cfg = dataclasses.replace(get_config("llsc-100m"), qkv_bias=True)
-    with pytest.raises(NotImplementedError, match="qkv_bias"):
+    """A frontend (internvl2's patch stub) stays unsupported, planted in a
+    config the port serves; QKV bias and MLA are supported since they were
+    ported with qwen1.5 and minicpm3."""
+    cfg = dataclasses.replace(get_config("llsc-100m"), frontend="patch_stub",
+                              frontend_len=8)
+    with pytest.raises(NotImplementedError, match="frontend patch_stub"):
         model_lib.count_params(cfg)
+    for change in ({"qkv_bias": True}, {"mla": get_config("minicpm3-4b").mla}):
+        model_lib.count_params(dataclasses.replace(get_config("llsc-100m"),
+                                                   **change))
 
 
 @pytest.mark.parametrize("arch,change,match", [
-    ("qwen1.5-4b", {}, "qkv_bias"),
-    ("gemma3-1b", {"qkv_bias": True}, "qkv_bias"),
+    ("internvl2-2b", {}, "frontend patch_stub"),
+    ("gemma3-1b", {"frontend": "patch_stub", "frontend_len": 16},
+     "frontend patch_stub"),
     ("llsc-100m", {"act": "relu"}, "act relu"),
     ("granite-moe-1b-a400m", {"act": "geglu"}, "act geglu"),
-    ("minicpm3-4b", {}, "mla"),
+    ("whisper-base", {"encoder": JaxEncoderSpec(
+        n_layers=2, n_heads=4, n_kv_heads=4, d_ff=64, source_len=16)},
+     "encoder"),
     ("whisper-base", {}, "encoder"),
 ])
 def test_unsupported_mixes_raise(arch, change, match):
-    """QKV bias (qwen1.5's, or planted in gemma3), an FFN act the reference's
-    ``mlp`` does not know, GeGLU experts (the reference's ``moe_ffn`` takes
-    SwiGLU or GELU), MLA and encoders stay unsupported; attention and
-    Mamba-2 layers in one pattern (jamba), local attention (gemma3) and
-    GeGLU dense FFNs do not raise."""
+    """A frontend (internvl2's patch stub, or one planted in gemma3), an FFN
+    act the reference's ``mlp`` does not know, GeGLU experts (the
+    reference's ``moe_ffn`` takes SwiGLU or GELU) and encoders (whisper's,
+    or a smaller one) stay unsupported; attention and Mamba-2 layers in
+    one pattern (jamba), local attention (gemma3), GeGLU dense FFNs, QKV
+    bias (qwen1.5) and MLA (minicpm3) do not raise."""
     cfg = dataclasses.replace(jax_get_config(arch), **change)
     mine = ModelConfig(**{f.name: getattr(cfg, f.name)
                           for f in dataclasses.fields(cfg)})
@@ -281,3 +294,73 @@ def test_overload_controller_copy(duties, nppn):
 def test_packed_throughput_model_copy(duty, nppn):
     assert overload.packed_throughput_model(duty, nppn) == \
         jax_overload.packed_throughput_model(duty, nppn)
+
+
+NEW_ARCHS = ["qwen1.5-4b", "phi3-medium-14b", "minicpm3-4b"]
+
+
+@pytest.mark.parametrize("reduced", [False, True])
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_qwen_phi3_minicpm3_configs_equal_reference(arch, reduced):
+    """The copies, and their reduced forms, equal the reference's field for
+    field: reduced phi3 keeps GQA (4 query and 2 KV heads), reduced
+    minicpm3 keeps MLA at ranks 32 and 16, heads of 8 + 8 and values of 8."""
+    mine, ref = get_config(arch), jax_get_config(arch)
+    if reduced:
+        mine, ref = reduced_config(mine), jax_reduced(ref)
+    assert dataclasses.asdict(mine) == dataclasses.asdict(ref)
+    if reduced and arch == "phi3-medium-14b":
+        assert (mine.n_heads, mine.n_kv_heads) == (4, 2)
+    if reduced and arch == "minicpm3-4b":
+        m = mine.mla
+        assert (m.q_lora_rank, m.kv_lora_rank, m.qk_nope_head_dim,
+                m.qk_rope_head_dim, m.v_head_dim) == (32, 16, 8, 8, 8)
+
+
+@pytest.mark.parametrize("variant", ["full", "8_layers", "1_layer",
+                                     "reduced", "reduced_2_layers"])
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_qwen_phi3_minicpm3_counts_and_flops_equal_reference(arch, variant):
+    """count_params, count_params_analytic (total and active) and
+    model_flops of the reference, from the shapes alone, at full depth, at
+    chip_smoke's train depth (8) and card-against-CPU depth (1), and
+    reduced."""
+    cfg, ref = get_config(arch), jax_get_config(arch)
+    if variant.startswith("reduced"):
+        cfg, ref = reduced_config(cfg), jax_reduced(ref)
+    change = {"8_layers": {"n_layers": 8}, "1_layer": {"n_layers": 1},
+              "reduced_2_layers": {"n_layers": 2}}.get(variant, {})
+    cfg = dataclasses.replace(cfg, **change)
+    ref = dataclasses.replace(ref, **change)
+    assert model_lib.count_params(cfg) == jax_model.count_params(ref)
+    for active in (False, True):
+        assert model_lib.count_params_analytic(cfg, active) == \
+            jax_model.count_params_analytic(ref, active)
+    for training in (False, True):
+        assert model_lib.model_flops(cfg, 7, training=training) == \
+            jax_model.model_flops(ref, 7, training=training)
+
+
+@pytest.mark.parametrize("arch,total,layer", [
+    # two norms, q k v 2560 x 2560 with their biases, o, SwiGLU 3 x 2560 x
+    # 6912; untied 151936 x 2560 embedding and head
+    ("qwen1.5-4b", 3_950_369_280,
+     2 * 2560 + 4 * 2560 * 2560 + 3 * 2560 + 3 * 2560 * 6912),
+    # q 5120 x 5120, k and v 5120 x 1280 (10 KV heads of 128), o, SwiGLU
+    # 3 x 5120 x 17920; untied 100352 x 5120
+    ("phi3-medium-14b", 14_659_507_200,
+     2 * 5120 + 5120 * (5120 + 2 * 1280) + 5120 * 5120 + 3 * 5120 * 17920),
+    # wq_a 2560 x 768, q_norm, wq_b 768 x 40 * 96, wkv_a 2560 x 288,
+    # kv_norm, wkv_b 256 x 40 * 128, wo 40 * 64 x 2560, SwiGLU 3 x 2560 x
+    # 6400; untied 73448 x 2560
+    ("minicpm3-4b", 4_261_902_848,
+     2 * 2560 + 2560 * 768 + 768 + 768 * 3840 + 2560 * 288 + 256
+     + 256 * 5120 + 2560 * 2560 + 3 * 2560 * 6400),
+])
+def test_qwen_phi3_minicpm3_counts(arch, total, layer):
+    cfg = get_config(arch)
+    d, V = cfg.d_model, cfg.vocab_size
+    assert model_lib.count_params(cfg) == 2 * V * d + cfg.n_layers * layer \
+        + d == total
+    assert model_lib.model_flops(cfg, 256, training=False) == \
+        2 * total * 256

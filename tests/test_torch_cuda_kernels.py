@@ -52,7 +52,11 @@ def _close(got, want, dtype):
     # D = 256, gemma3-1b's global layers (4 query heads, 1 KV head)
     (1, 4, 1, 256, 256, 256, True), (1, 4, 1, 640, 640, 256, True),
     (2, 4, 1, 100, 100, 256, True), (1, 4, 2, 33, 70, 256, False),
-    (1, 4, 1, 1024, 1024, 256, True), (8, 4, 1, 256, 256, 256, True)])
+    (1, 4, 1, 1024, 1024, 256, True), (8, 4, 1, 256, 256, 256, True),
+    # D = 128: qwen1.5-4b's 20 heads and phi3-medium-14b's 40 query and 10
+    # KV heads (G = 4), at the serve's prefills and a train step
+    (1, 20, 20, 256, 256, 128, True), (1, 40, 10, 128, 128, 128, True),
+    (1, 40, 10, 256, 256, 128, True), (8, 20, 20, 256, 256, 128, True)])
 def test_flash_kernel_matches_plain(dev, B, H, Hk, S, T, D, causal, dtype):
     g = torch.Generator(device=dev).manual_seed(S * D + H)
     q = torch.randn(B, H, S, D, device=dev, generator=g).to(dtype)
@@ -134,11 +138,16 @@ def test_flash_bf16_refuses_unaligned_inputs(dev):
 
 
 # The test sweep, llsc-100m's and mamba2-370m's rows (vector body), then
-# widths that are not a multiple of 8 elements (scalar body).
+# widths that are not a multiple of 8 elements (scalar body); then
+# qwen1.5-4b's and minicpm3-4b's rows of 2560 (vector body), phi3-medium-
+# 14b's of 5120 (past 4096: the scalar body) and minicpm3-4b's q_norm
+# (768) and kv_norm (256) rows, at a decode step's 4 and a prefill's 256.
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("rows,d", [(32, 128), (33, 256), (7, 64), (4, 768),
                                     (256, 768), (1, 1000), (4, 1024),
-                                    (320, 1024), (5, 100), (3, 101)])
+                                    (320, 1024), (5, 100), (3, 101),
+                                    (4, 2560), (256, 2560), (4, 5120),
+                                    (256, 5120), (4, 256), (256, 256)])
 def test_rmsnorm_kernel_matches_plain(dev, rows, d, dtype):
     g = torch.Generator(device=dev).manual_seed(rows + d)
     x = torch.randn(rows, d, device=dev, generator=g).to(dtype)
@@ -158,6 +167,49 @@ def test_rmsnorm_reads_rows_off_alignment(dev, dtype):
     got = rn.rmsnorm(x, s)
     torch.cuda.synchronize()
     _close(got, ref.rmsnorm_ref(x, s), dtype)
+
+
+# MLA's kv_norm input: the first 256 columns of wkv_a's 288-wide output,
+# rows 288 elements apart (a whole number of 16-byte vectors: the vector
+# body), at a decode step's and a prefill's rows; then a row stride of 289
+# (not a whole number of vectors: the scalar body).
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("lead,d,width", [((4, 1), 256, 288),
+                                          ((1, 256), 256, 288),
+                                          ((3, 5), 256, 289)])
+def test_rmsnorm_reads_strided_rows(dev, dtype, lead, d, width):
+    g = torch.Generator(device=dev).manual_seed(width + lead[1])
+    proj = torch.randn(*lead, width, device=dev, generator=g).to(dtype)
+    x = proj[..., :d]
+    assert not x.is_contiguous()
+    s = (torch.randn(d, device=dev, generator=g) * 0.1 + 1.0).to(dtype)
+    n = rn.launches
+    got = rn.rmsnorm(x, s)
+    torch.cuda.synchronize()
+    assert rn.launches == n + 1 and got.is_contiguous()
+    _close(got, ref.rmsnorm_ref(x, s), dtype)
+    _close(got, ref.rmsnorm_ref(x.contiguous(), s), dtype)
+
+
+def test_strided_norm_input_never_takes_the_plain_route(dev, monkeypatch):
+    """ops.rmsnorm on MLA's strided kv_norm view launches the kernel (and,
+    under autograd, through its Function); rows with no single stride
+    raise and launch nothing."""
+    def plain(*_a, **_k):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    proj = torch.randn(2, 3, 288, device=dev)
+    s = torch.ones(256, device=dev)
+    monkeypatch.setattr(ref, "rmsnorm_ref", plain)
+    n = rn.launches
+    ops.rmsnorm(proj[..., :256], s)
+    ops.rmsnorm(proj[..., :256], s.clone().requires_grad_())
+    torch.cuda.synchronize()
+    assert rn.launches == n + 2
+    ragged = torch.randn(4, 6, 64, device=dev)[:, :5]    # rows 64 and 384 apart
+    with pytest.raises(ValueError, match="no single stride"):
+        ops.rmsnorm(ragged, torch.ones(64, device=dev))
+    assert rn.launches == n + 2
 
 
 def test_cuda_tensors_never_take_the_plain_route(dev, monkeypatch):

@@ -225,7 +225,7 @@ def test_completions_through_3_slots_identical_to_jax(setup, banded, flash):
     and global caches alike (``TIME_AXIS_LEAVES``), and the completions
     agree token for token."""
     jcfg, cfg, jparams, params, _ = setup
-    assert engine.TIME_AXIS_LEAVES == ("k", "v")
+    assert engine.TIME_AXIS_LEAVES[:2] == ("k", "v")
     rng = np.random.default_rng(12)
     lens = (2, 8, 40, 8, 2, 40, 8)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
