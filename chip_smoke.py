@@ -44,7 +44,11 @@ It imports nothing of JAX or of the JAX package.  Phases:
    rows of 2560 (qwen1.5, minicpm3), 5120 (phi3, the scalar body), 768
    and 256 (minicpm3's q_norm and kv_norm), and kv_norm's input as it is,
    256 of rows 288 apart (and 289: the scalar body), timed against
-   ``F.rms_norm``;
+   ``F.rms_norm``; flash at whisper-base's 8 heads of 64 (B1 S128, and a
+   train step's B8 S256) and internvl2-2b's 16 query and 8 KV heads of 128
+   (S = 384 and 512, and a train step's B8 S512), against SDPA; RMSNorm at
+   whisper-base's rows of 512 (4 and 6000: the encoder of 4 requests) and
+   internvl2-2b's of 2048 (4 and 384), against ``F.rms_norm``;
 4. serve llsc-100m at full width and depth in bfloat16 with
    ``flash_kernel`` on through ``ServeEngine``: 8 requests (prompts of 128
    and 256 tokens, 32 new tokens each) through 4 slots; the kernels'
@@ -120,8 +124,9 @@ It imports nothing of JAX or of the JAX package.  Phases:
     1e-4, the same tokens), with every layer's top-k expert ids the same on
     both sides (flips counted; the gap of the k-th and (k+1)-th router
     logit printed at each);
-21. the first 4 of 19's requests (one wave through the 4 slots) under
-    ``torch.profiler``, as 6, with the device time of the MoE's parts:
+21. the first 4 of 19's requests (one wave through the 4 slots), cut to 8
+    new tokens each, under ``torch.profiler``, as 6, with the device time
+    of the MoE's parts:
     routing, the sort, the scatter, the expert products and the combine
     (labels need the host's operators in the trace, which then takes
     minutes to read over all 8 requests);
@@ -182,8 +187,9 @@ It imports nothing of JAX or of the JAX package.  Phases:
     one decode step's device time against the HBM time of its weights;
 37. the same for phi3-medium-14b (40 query and 10 KV heads of 128;
     14,659,507,200 parameters, 29.3 GB in bf16);
-38. a serve of the first 4 of 37's requests under ``torch.profiler``, as
-    6, with attention's prefill and decode and the FFN under
+38. a serve of the first 4 of 37's requests, cut to 8 new tokens each,
+    under ``torch.profiler``, as 6, with attention's prefill and decode
+    and the FFN under
     ``record_function`` labels;
 39. the same as 36 for minicpm3-4b (62 MLA layers; 4,261,902,848
     parameters): no flash (MLA takes chunked attention, as the
@@ -206,16 +212,58 @@ It imports nothing of JAX or of the JAX package.  Phases:
     ``flash_kernel``, planted, card against CPU: prefill and decode
     logits, then 2 train steps; and ``launch.serve`` and ``launch.train``
     (20 steps) of each, reduced, exit 0;
-46. the launches of each main path (the serves of 4, 7, 19, 25, 30, 36,
-    37 and 39, the train runs of 11, 14, 22, 32, 40 and 42), one
-    ``{"kernels": [...]}`` line (each kernel's launches summed over those
-    paths), the nvidia-smi line, and last the ``{"ok": true, ...}`` line.
+46. after a collection and ``empty_cache``, serve whisper-base
+    (encoder-decoder: 6 encoder layers over 1500 frames, 6 decoder layers
+    with cross attention; 97,166,336 parameters drawn on the card) at full
+    width and depth in bfloat16 with ``flash_kernel`` at the model level,
+    as the reference's tests serve it (its engine takes no frames): 2
+    batches of 4 requests, each 1500 frames of ``SyntheticLM.frontend``
+    and a prompt of 128 (one batch) or 256 tokens (the other), 32 greedy
+    new tokens each (the prefill's and 31 decode steps); flash = 6 x
+    prefills (the decoder's self-attention; the encoder's attention and
+    the cross attention are chunked, as the reference's), rmsnorm = 32 x
+    prefills (13 in the encoder) + 19 x decode steps; tokens/s, prefill,
+    decode and encoder ms, peak memory; one decode step's device time
+    against the HBM time of the decoder's and head's weights and the
+    cross-attention keys and values it reads;
+47. serve internvl2-2b (24 layers of 16 query and 8 KV heads of 128;
+    1,889,146,880 parameters drawn on the card) at full width and depth
+    through ``ServeEngine``, text only as the reference's, as 36: flash =
+    24 x prefills, rmsnorm = 49 x (prefills + decode steps); one decode
+    step against its weights' HBM time;
+48. internvl2-2b at the model level, as 46: 4 requests of 256 patches and
+    128 tokens (384 positions: flash takes them), 32 new tokens each;
+49. train whisper-base at full width and depth through
+    ``launch.train.main`` as 11, 8 x 1500 frames and 8 x 256 tokens a
+    step: 12 flash and 50 RMSNorm launches a step (the encoder's 13 run
+    once: it lies outside the rematerialized periods);
+50. one whisper-base train step under ``torch.profiler``, as 12;
+51. train internvl2-2b at full width and depth the same way, 8 x 256
+    patches before 8 x 256 tokens a step (512 positions): 48 flash and 97
+    RMSNorm launches a step;
+52. one internvl2-2b train step under ``torch.profiler``, as 12;
+53. float32, norm scales planted, card against CPU within 1e-4:
+    whisper-base at full width and depth (a prefill of 1500 frames and
+    128 tokens, 8 greedy decode steps; 2 train steps, gradients within
+    1e-4 of each leaf's largest, the encoder's among them) and
+    internvl2-2b at full width and 1 layer (256 patches) the same;
+54. reduced whisper-base and internvl2-2b in float32 with
+    ``flash_kernel``, planted, card against CPU: prefill and decode
+    logits, then 2 train steps; ``launch.train`` (20 steps) of each and
+    ``launch.serve`` of internvl2 exit 0; ``launch.serve`` of whisper
+    exits 1 with the port's message;
+55. the launches of each main path (the serves of 4, 7, 19, 25, 30, 36,
+    37, 39, 46, 47 and 48, the train runs of 11, 14, 22, 32, 40, 42, 49
+    and 51), one ``{"kernels": [...]}`` line (each kernel's launches
+    summed over those paths), the nvidia-smi line, and last the
+    ``{"ok": true, ...}`` line.
 
 Any failed check raises, and the script exits non-zero; without a CUDA
 device, or outside a checkout, it prints no result and exits 1.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import gc
@@ -294,29 +342,44 @@ def device_activities(prof):
             and e.name not in LABELS]
 
 
-def device_ms(fn, iters=100, warmup=10, tries=3):
+def device_ms(fn, iters=100, warmup=10, tries=8):
     """Mean device time of one call: the summed durations of the device
     activities that ``iters`` calls launch, from a torch.profiler trace of
-    the device alone.  A trace whose activity count is not a whole multiple
-    of ``iters`` has lost records, and is taken again.  Returns (ms, device
-    activities per call)."""
+    the device alone.  A trace in which some activity's count is not a
+    whole multiple of ``iters`` has lost records, and is taken again after
+    a pause that doubles each time: losses come in bursts over a few traces
+    in a row (``trace_losses``).  Returns (ms, device activities per
+    call)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
-    for _ in range(tries):
+    for attempt in range(tries):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
         acts = device_activities(prof)
-        if acts and len(acts) % iters == 0:
+        if not trace_losses(acts, iters):
             return sum(a[1] for a in acts) / iters / 1e3, len(acts) / iters
+        pause = min(0.25 * 2 ** attempt, 4.0)
         print(f"  (the trace holds {len(acts)} device activities for "
-              f"{iters} calls: records were lost; tracing again)")
+              f"{iters} calls: records were lost; tracing again in "
+              f"{pause:g} s)")
+        time.sleep(pause)
     raise RuntimeError(f"chip_smoke: {tries} traces in a row lost records")
+
+
+def trace_losses(acts, iters):
+    """Whether a trace of ``iters`` calls has lost records: it holds none,
+    or some activity name's count is not a whole multiple of ``iters``.
+    Records go missing in blocks that span many calls, up to the whole
+    trace (``chip_trace_probe.py``), so a count check per name also
+    catches a loss that leaves the total a multiple of ``iters``."""
+    counts = collections.Counter(a[0] for a in acts)
+    return not counts or any(n % iters for n in counts.values())
 
 
 def timed(label, fns):
@@ -435,12 +498,29 @@ def phase_kernels(torch, fa, rn, ref, hw):
         # KV heads of 128): the serves' prefills and a train step
         (1, 20, 20, 128, 128, True), (1, 20, 20, 256, 128, True),
         (1, 40, 10, 128, 128, True), (1, 40, 10, 256, 128, True),
-        (8, 20, 20, 256, 128, True)]
+        (8, 20, 20, 256, 128, True),
+        # whisper-base's decoder (8 heads of 64): the model-level serve's
+        # prefills of 4 requests, the fp32 check's prefill and train step,
+        # a train step
+        (4, 8, 8, 128, 64, True), (4, 8, 8, 256, 64, True),
+        (1, 8, 8, 128, 64, True), (1, 8, 8, 256, 64, True),
+        (8, 8, 8, 256, 64, True),
+        # internvl2-2b (16 query and 8 KV heads of 128): the engine's text
+        # prefills of 128 and 256 tokens, the model-level prefill of 4
+        # requests of 256 patches and 128 tokens, the fp32 check's prefill
+        # and train step (1 x 384 and 1 x 512 positions), a train step
+        (1, 16, 8, 128, 128, True), (1, 16, 8, 256, 128, True),
+        (4, 16, 8, 384, 128, True), (1, 16, 8, 384, 128, True),
+        (1, 16, 8, 512, 128, True), (8, 16, 8, 512, 128, True)]
     # D = 16 and 256, with T apart from S: B, H, Hk, S, T, D, causal
     flash_wide = [
         # every reduced config (reduced gemma3: 4 query heads, 1 KV head)
         (2, 4, 2, 128, 128, 16, True), (1, 4, 1, 33, 70, 16, False),
         (2, 4, 4, 100, 100, 16, True), (1, 4, 1, 64, 64, 16, True),
+        # reduced whisper's prefill and train step, reduced internvl2's
+        # prefill of 8 patches and 64 tokens
+        (1, 4, 4, 64, 64, 16, True), (1, 4, 4, 256, 256, 16, True),
+        (1, 4, 2, 72, 72, 16, True),
         # gemma3-1b's global layers: the serve's prefills, a train step,
         # the fp32 check's 1280 tokens, ragged S and T, a long causal
         (1, 4, 1, 256, 256, 256, True), (1, 4, 1, 640, 640, 256, True),
@@ -458,7 +538,20 @@ def phase_kernels(torch, fa, rn, ref, hw):
                  # phi3-medium-14b's (serve, on the scalar body),
                  # minicpm3-4b's kv_norm (its q_norm is llsc-100m's 768)
                  (4, 2560), (256, 2560), (2048, 2560), (4, 5120),
-                 (256, 5120), (4, 256), (256, 256), (2048, 256)]
+                 (256, 5120), (4, 256), (256, 256), (2048, 256),
+                 # whisper-base's rows of 512: a decode step, the decoder's
+                 # prefills of 4 requests (128 and 256 tokens) and the
+                 # encoder's, the fp32 check's decoder and encoder, a
+                 # train step's decoder and encoder
+                 (4, 512), (512, 512), (1024, 512), (6000, 512), (1, 512),
+                 (128, 512), (1500, 512), (256, 512), (2048, 512),
+                 (12000, 512),
+                 # internvl2-2b's of 2048: a decode step, the engine's
+                 # prefills (128 and 256 tokens), the model-level prefill
+                 # of 4 x 384 positions, the fp32 check's prefill and train
+                 # step (384 and 512 positions), a train step
+                 (4, 2048), (128, 2048), (256, 2048), (1536, 2048),
+                 (1, 2048), (384, 2048), (512, 2048), (4096, 2048)]
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[1]
         for B, H, Hk, S, D, causal in flash_cases:
@@ -512,7 +605,12 @@ def phase_kernels(torch, fa, rn, ref, hw):
                 "bfloat16")
     check_refusals(torch, fa, rn, randn)
 
-    # Timings at the main paths' shapes, bf16: the attention of reduced
+    # Timings at the main paths' shapes, bf16: the attention of whisper-base's
+    # decoder (8 heads of 64) at the model-level serve's prefills of 4
+    # requests (128 and 256 tokens), at one request's 128 and a train step,
+    # of internvl2-2b's (16 query and 8 KV heads of 128) at the engine's
+    # prefills of 128 and 256 tokens, the model-level prefill of 4 x 384
+    # positions, one request's 384, 512 positions and a train step, of reduced
     # gemma3's prefill of 64 tokens (D 16), of gemma3-1b's global layers (4
     # query heads, 1 KV head of 256) at its prefills of 256 and 640 tokens
     # and a train step, of qwen1.5-4b's (20 heads of 128) and
@@ -523,13 +621,20 @@ def phase_kernels(torch, fa, rn, ref, hw):
     # prefill's rows and a train step's 2048, at gemma3's width (1152),
     # jamba's (8192), mamba2-370m's and granite's (1024), qwen1.5's and
     # minicpm3's (2560), phi3's (5120), minicpm3's kv_norm (256 of rows
-    # 288 apart) and llsc-100m's and minicpm3's q_norm (768), the scale in
+    # 288 apart), whisper-base's (512: a decode step and the encoder of 4
+    # requests), internvl2-2b's (2048: a decode step and a prefill) and
+    # llsc-100m's and minicpm3's q_norm (768), the scale in
     # bf16 as the serves hold it.  The kernels line keeps llsc-100m's B =
     # 1, S = 256 and 4 rows of 768.
     F = torch.nn.functional
     rows = []
     bf16 = torch.bfloat16
-    for H, Hk, B, S, D in ((4, 1, 1, 64, 16), (4, 1, 1, 256, 256),
+    for H, Hk, B, S, D in ((8, 8, 4, 128, 64), (8, 8, 4, 256, 64),
+                           (8, 8, 1, 128, 64), (8, 8, 8, 256, 64),
+                           (16, 8, 1, 128, 128), (16, 8, 1, 256, 128),
+                           (16, 8, 4, 384, 128), (16, 8, 1, 384, 128),
+                           (16, 8, 1, 512, 128), (16, 8, 8, 512, 128),
+                           (4, 1, 1, 64, 16), (4, 1, 1, 256, 256),
                            (4, 1, 1, 640, 256), (4, 1, 8, 256, 256),
                            (20, 20, 1, 256, 128), (40, 10, 1, 256, 128),
                            (20, 20, 8, 256, 128),
@@ -560,7 +665,9 @@ def phase_kernels(torch, fa, rn, ref, hw):
     # then qwen1.5-4b's and minicpm3-4b's width (2560), phi3-medium-14b's
     # (5120), and minicpm3-4b's kv_norm (256, on rows 288 apart) and q_norm
     # (768, with llsc-100m's)
-    for d, nrows_list, width in ((1152, (2048, 640, 256, 4), 1152),
+    for d, nrows_list, width in ((512, (6000, 1024, 512, 4), 512),
+                                 (2048, (1536, 384, 256, 128, 4), 2048),
+                                 (1152, (2048, 640, 256, 4), 1152),
                                  (8192, (256, 4), 8192),
                                  (1024, (2048, 320, 4), 1024),
                                  (2560, (2048, 256, 4), 2560),
@@ -891,29 +998,29 @@ def ssd_body(ssd):
     return f"tensor cores, {hb} heads a block" if hb else "CUDA cores"
 
 
-def make_requests(engine_mod, vocab, n, seed, lens):
+def make_requests(engine_mod, vocab, n, seed, lens, new=32):
     import numpy as np
 
     rng = np.random.default_rng(seed)
     return [engine_mod.Request(i, rng.integers(0, vocab, lens[i % len(lens)])
-                               .astype(np.int32), max_new_tokens=32)
+                               .astype(np.int32), max_new_tokens=new)
             for i in range(n)]
 
 
 def phase_serve(torch, cfg, params, engine, counters, perf, *, lens, max_seq,
-                profile=False, parts=None, requests=8):
-    """Phases 4, 7, 19, 25, 30, 36, 37 and 39 (6, 9, 21, 26, 31 and 38 with
+                profile=False, parts=None, requests=8, new=32):
+    """Phases 4, 7, 19, 25, 30, 36, 37, 39 and 47 (6, 9, 21, 26, 31 and 38 with
     ``profile``, the functions of ``parts``, (module, {label: attribute})
     pairs, under their labels; by default a MoE model's ``MOE_PARTS``):
-    serve ``requests`` requests (8) of the prompt lengths ``lens`` through
-    4 slots, with every launch counter of ``counters`` (name -> (module,
+    serve ``requests`` requests (8) of the prompt lengths ``lens``, ``new``
+    new tokens each (32), through 4 slots, with every launch counter of ``counters`` (name -> (module,
     attribute)) set to 0 just before.  A profile with no part labelled
     traces the device alone: tracing the host's operators as well slows
     the host it measures and takes minutes to read."""
     eng = engine.ServeEngine(cfg, params, engine.EngineConfig(
         slots=4, max_seq_len=max_seq, job_name=f"chip_smoke:{cfg.name}"))
     for r in make_requests(engine, cfg.vocab_size, requests, seed=1,
-                           lens=lens):
+                           lens=lens, new=new):
         eng.submit(r)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -984,6 +1091,17 @@ def grow_time(torch, t, part, n):
     return torch.cat([t, t.new_zeros(shape)], dim=axis)
 
 
+def grow_caches(torch, cache, time_axis, n):
+    """``cache`` with ``n`` zero positions more on the time axis of its
+    ``time_axis`` leaves (self-attention's ``k`` and ``v``; an
+    encoder-decoder model's ``xk`` and ``xv`` span the frames and stay)."""
+    return {part: {key: {name: grow_time(torch, t, part, n)
+                         if name in time_axis else t
+                         for name, t in e.items()}
+                   for key, e in entries.items()}
+            for part, entries in cache.items()}
+
+
 # Leaves the reference initializes to a constant, by their last key: the
 # QKV biases (zeros) and the norm scales (ones).
 BIASES = ("bq", "bk", "bv")
@@ -1013,6 +1131,12 @@ def plant(torch, params, seed=7):
     return walk(params)
 
 
+def patches(cfg):
+    """P, the patches a ``patch_stub`` model puts before the tokens; 0
+    otherwise (an encoder's frames take no decoder position)."""
+    return cfg.frontend_len if cfg.frontend == "patch_stub" else 0
+
+
 def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
@@ -1021,15 +1145,18 @@ def _to(tree, dev):
 
 def card_vs_cpu(torch, np, model_lib, perf, time_axis, cfg, S,
                 scalar_norm=False, banded=False, planted=False):
-    """Phases 5, 8, 20, 27, 28, 34, 35, 44 and 45: float32 logits of one
-    seed's weights on the card and on the CPU over an S-token prefill and 8
-    greedy decode steps, each side choosing its own tokens, with
-    ``flash_kernel`` on and ``banded_local`` as ``banded`` says; with
-    ``planted``, the biases and norm scales drawn by ``plant``.  With
-    ``scalar_norm`` the card runs once more with
-    every RMSNorm input copied one element off 16-byte alignment, so that
-    the norm takes its scalar body instead of the vector one."""
+    """Phases 5, 8, 20, 27, 28, 34, 35, 44, 45, 53 and 54: float32 logits
+    of one seed's weights on the card and on the CPU over an S-token
+    prefill and 8 greedy decode steps, each side choosing its own tokens,
+    with ``flash_kernel`` on and ``banded_local`` as ``banded`` says; with
+    ``planted``, the biases and norm scales drawn by ``plant``.  A model
+    with a stub frontend takes the same standard-normal frames or patches
+    on both sides (``SyntheticLM.frontend``'s CPU draw), and decodes from
+    P + S.  With ``scalar_norm`` the card runs once more with every
+    RMSNorm input copied one element off 16-byte alignment, so that the
+    norm takes its scalar body instead of the vector one."""
     from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.train.data import DataConfig, SyntheticLM
 
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     p_cpu = model_lib.init_params(cfg, torch.Generator().manual_seed(0),
@@ -1037,28 +1164,29 @@ def card_vs_cpu(torch, np, model_lib, perf, time_axis, cfg, S,
     if planted:
         p_cpu = plant(torch, p_cpu)
 
+    fe_cpu = SyntheticLM(DataConfig(cfg.vocab_size, S, 1, 0)).frontend(
+        0, cfg32)
+
     def run(dev):
         p = _to(p_cpu, dev) if dev == "cuda" else p_cpu
         tokens = torch.as_tensor(
             np.random.default_rng(2).integers(0, cfg.vocab_size, (1, S)),
             device=dev)
+        fe = None if fe_cpu is None else fe_cpu.to(dev)
+        start = S + patches(cfg)
         logits_all = []
         with perf.perf_flags(perf.PerfFlags(flash_kernel=True,
                                             banded_local=banded)):
-            logits, cache = model_lib.prefill(p, cfg32, tokens)
+            logits, cache = model_lib.prefill(p, cfg32, tokens, fe)
             # room for 8 more tokens on the time axis of attention caches
-            cache = {part: {key: {n: grow_time(torch, t, part, 8)
-                                  if n in time_axis else t
-                                  for n, t in e.items()}
-                            for key, e in entries.items()}
-                     for part, entries in cache.items()}
+            cache = grow_caches(torch, cache, time_axis, 8)
             for step in range(9):
                 logits_all.append(logits.cpu())
                 if step == 8:
                     break
                 tok = torch.argmax(logits, dim=-1)
                 logits, cache = model_lib.decode_step(p, cfg32, tok[:, None],
-                                                      cache, S + step)
+                                                      cache, start + step)
         return logits_all
 
     def compare(card, cpu, quiet=False):
@@ -1184,18 +1312,24 @@ def report_parts(prof, parts, total_ms):
               "of the device time")
 
 
+# New tokens a request of a labelled profile (phases 21 and 38): reading a
+# trace of the host's operators takes about 1.5 s a decode step.
+PROFILE_NEW = 8
+
+
 def profile_first_wave(torch, cfg, params, engine, counters, perf, serve,
                        kernels, parts):
     """Phases 21 and 38: the first 4 of a serve's 8 requests (one wave
-    through the 4 slots) untraced, then under torch.profiler with the
+    through the 4 slots), each cut to ``PROFILE_NEW`` new tokens (a prefill
+    and 7 decode steps), untraced, then under torch.profiler with the
     functions of ``parts`` labelled, reported as ``report_profile`` does:
     labels need the host's operators in the trace, and a trace of both
     takes minutes to read at some 3,000 device activities a pass."""
     _, untraced, _ = phase_serve(torch, cfg, params, engine, counters, perf,
-                                 requests=4, **serve)
+                                 requests=4, new=PROFILE_NEW, **serve)
     report_profile(*phase_serve(torch, cfg, params, engine, counters, perf,
                                 profile=True, parts=parts, requests=4,
-                                **serve), untraced["wall_s"],
+                                new=PROFILE_NEW, **serve), untraced["wall_s"],
                    "the 4-request serve", kernels,
                    [label for _, labels in parts for label in labels])
 
@@ -1393,8 +1527,9 @@ def block_launches(cfg, slots, *, prefill):
     attention and the SSD recurrence are plain, as the reference's); an
     MLA layer (a config with an ``MLASpec``) runs no flash, in prefill and
     decode alike, and two more RMSNorms, ``q_norm`` and ``kv_norm``; every
-    layer ln1, and ln2 where it has an FFN (a MoE, or an MLP of d_ff >
-    0)."""
+    layer ln1, ln2 where it has an FFN (a MoE, or an MLP of d_ff > 0), and
+    in an encoder-decoder model ``ln_x`` (its cross attention is chunked
+    attention, as the reference's)."""
     out = dict.fromkeys(KERNEL_NAMES, 0)
     for kind, mlp_kind in slots:
         if kind == "ssm":
@@ -1405,41 +1540,53 @@ def block_launches(cfg, slots, *, prefill):
         elif kind == "attn":
             out["flash_attention"] += int(prefill)
         out["rmsnorm"] += 2 if mlp_kind == "moe" or cfg.d_ff > 0 else 1
+        out["rmsnorm"] += int(cfg.is_encdec)
     return out
+
+
+def encoder_norms(cfg):
+    """The RMSNorms an encoder pass launches: ln1 and ln2 a layer and
+    ``enc_norm`` (its attention is chunked, as the reference's); 0 for a
+    model without an encoder."""
+    return 2 * cfg.encoder.n_layers + 1 if cfg.is_encdec else 0
 
 
 def serve_launches(cfg, n_pre, n_dec):
     """The launches of a serve of ``n_pre`` prefills and ``n_dec`` decode
-    steps: every layer's, and the final norm once a prefill or step."""
+    steps: every layer's, the final norm once a prefill or step, and the
+    encoder's once a prefill."""
     layers = sum(layer_slots(cfg), [])
     pre = block_launches(cfg, layers, prefill=True)
     dec = block_launches(cfg, layers, prefill=False)
-    return {k: pre[k] * n_pre + dec[k] * n_dec
-            + (n_pre + n_dec) * (k == "rmsnorm") for k in pre}
+    return {k: pre[k] * n_pre + dec[k] * n_dec + (k == "rmsnorm") * (
+        n_pre + n_dec + encoder_norms(cfg) * n_pre) for k in pre}
 
 
 def step_launches(cfg):
     """The hand-written kernels' launches in one train step of ``cfg`` (with
     ``flash_kernel``): each block's forward kernels run once in the
     forward and, under a ``cfg.remat`` other than "none", once more in the
-    backward's recompute of its period; the remainder layers and the final
-    norm lie outside the periods and run once.  The backwards are the
-    plain versions'."""
+    backward's recompute of its period; the remainder layers, the final
+    norm and the encoder lie outside the periods and run once.  The
+    backwards are the plain versions'."""
     runs = 1 if cfg.remat == "none" else 2
     stacked, rem = layer_slots(cfg)
     a = block_launches(cfg, stacked, prefill=True)
     b = block_launches(cfg, rem, prefill=True)
-    return {k: runs * a[k] + b[k] + (k == "rmsnorm") for k in a}
+    return {k: runs * a[k] + b[k]
+            + (k == "rmsnorm") * (1 + encoder_norms(cfg)) for k in a}
 
 
 def phase_train(torch, np, counters, registry, perf, smi, arch, flags=(),
                 *, phase, layers=None):
     """Phases 11-12 (llsc-100m), 14-15 (mamba2-370m), 22-23
-    (granite-moe-1b-a400m), 32-33 (gemma3-1b), 40-41 (qwen1.5-4b) and 42-43
-    (minicpm3-4b): ``launch.train.main`` trains ``arch`` at full
-    width and depth (``layers`` of them where given: the launcher's config
-    cut to that depth) in bfloat16 with float32 masters under the config's
-    ``remat`` ("full"), 22 AdamW steps of 8 x 256 tokens, the counters set
+    (granite-moe-1b-a400m), 32-33 (gemma3-1b), 40-41 (qwen1.5-4b), 42-43
+    (minicpm3-4b), 49-50 (whisper-base) and 51-52 (internvl2-2b):
+    ``launch.train.main`` trains ``arch`` at full width and depth
+    (``layers`` of them where given: the launcher's config cut to that
+    depth) in bfloat16 with float32 masters under the config's ``remat``
+    ("full"), 22 AdamW steps of 8 x 256 tokens (and the Trainer's frames
+    or patches for a model with a stub frontend), the counters set
     to 0 just before.  Every loss is finite; each step launches exactly
     ``step_launches``; the registry holds the job's duty in (0, 1], from
     the model FLOPs of the active parameters (``count_params_analytic``).
@@ -1521,6 +1668,8 @@ def phase_train(torch, np, counters, registry, perf, smi, arch, flags=(),
           f"{batch * seq / med:.1f} training tokens/s; published duty "
           f"{pub.duty_cycle:.6f} of the H100 bf16 peak (last step); peak "
           f"memory allocated {peak_mb:.1f} MiB")
+    if cfg.frontend != "none":
+        draw_times(torch, trainer.data, cfg)
     print(f"=== {phase + 1}. one {arch} train step under torch.profiler "
           f"[{smi}] ===")
     if cfg.family == "ssm":
@@ -1544,6 +1693,28 @@ def phase_train(torch, np, counters, registry, perf, smi, arch, flags=(),
     # later garbage collection in another phase's memory figures
     made.clear()
     return counts
+
+
+def draw_times(torch, data, cfg, reps=5):
+    """Wall ms (median of ``reps``) of a train step's frames or patches
+    drawn by ``SyntheticLM.frontend`` on the card, as the Trainer draws
+    them, and on the host and copied to the card."""
+    def wall(fn):
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return sorted(times)[reps // 2] * 1e3
+
+    card = wall(lambda: data.frontend(0, cfg, "cuda"))
+    host = wall(lambda: data.frontend(0, cfg).to("cuda"))
+    shape = tuple(data.frontend(0, cfg, "cuda").shape)
+    print(f"  the step's frontend {shape} drawn on the card (the Trainer's "
+          f"draw, inside the step time): {card:.3f} ms; on the host and "
+          f"copied to the card: {host:.3f} ms (wall, median of {reps})")
 
 
 def flat(tree, path=""):
@@ -1646,10 +1817,12 @@ def recorded_routes():
 
 def train_card_vs_cpu(torch, perf, cfg, aux_weights=None, banded=False,
                       planted=False):
-    """Phases 13, 16, 24, 28, 34, 35, 44 and 45: ``cfg`` in float32 (TF32
-    off), with ``planted`` the biases and norm scales drawn by ``plant``,
-    under its ``remat``, the same float32 masters from one seed on the card
-    and on the CPU, the same batch (1 x 256 tokens) for 2
+    """Phases 13, 16, 24, 28, 34, 35, 44, 45, 53 and 54: ``cfg`` in float32
+    (TF32 off), with ``planted`` the biases and norm scales drawn by
+    ``plant``, under its ``remat``, the same float32 masters from one seed
+    on the card and on the CPU, the same batch (1 x 256 tokens, with
+    ``SyntheticLM.frontend``'s frames or patches for a model with a stub
+    frontend) for 2
     ``make_train_step`` steps (with the MoE auxiliary losses at
     ``aux_weights``), with ``flash_kernel`` on and ``banded_local`` as
     ``banded`` says, and AdamW's moments in the config's
@@ -1664,7 +1837,11 @@ def train_card_vs_cpu(torch, perf, cfg, aux_weights=None, banded=False,
     print(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
           f"remat {cfg.remat!r}, moments {cfg.opt_dtype}")
     ocfg = ts.default_opt_cfg(cfg, total_steps=2)
-    batch = SyntheticLM(DataConfig(cfg.vocab_size, 256, 1, 0)).batch(0)
+    data = SyntheticLM(DataConfig(cfg.vocab_size, 256, 1, 0))
+    batch = data.batch(0)
+    fe = data.frontend(0, cfg)
+    if fe is not None:
+        batch["frontend"] = fe
     masters = ts.init_train_state(cfg, torch.Generator().manual_seed(0),
                                   ocfg, device="cpu").params
     if planted:
@@ -2009,11 +2186,14 @@ def phase_jamba_serve(torch, np, model_lib, engine, counters, perf, hw,
 
 
 def decode_vs_hbm(torch, model_lib, hw, cfg, params, smi, max_seq):
-    """Phases 26 and 36-39: the device time of one decode step of 4 slots
-    at 300 tokens (10 steps in one trace, over 10: the count of device
-    activities a step varies, so ``device_ms``' check does not apply),
-    against its bound: the bytes of the weights it reads (every leaf but
-    the embedding table, of which it reads 4 rows) at the HBM rate."""
+    """Phases 26, 36-39, 46 and 47: the device time of one decode step of 4
+    slots at 300 tokens (10 steps in one trace, over 10: the count of
+    device activities a step varies, so ``device_ms``' check does not
+    apply), against its bound: the bytes of the weights it reads (every
+    leaf but the embedding table, of which it reads 4 rows, and the
+    encoder's, which decode does not run) and of an encoder-decoder
+    model's cross-attention keys and values ``xk``, ``xv``, at the HBM
+    rate."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models.transformer import leaves
@@ -2030,12 +2210,21 @@ def decode_vs_hbm(torch, model_lib, hw, cfg, params, smi, max_seq):
         torch.cuda.synchronize()
     acts = device_activities(prof)
     ms, n = sum(a[1] for a in acts) / 10 / 1e3, len(acts) / 10
-    n_bytes = sum(t.numel() * t.element_size() for t in leaves(params))
+    def n_bytes(tree):
+        return sum(t.numel() * t.element_size() for t in leaves(tree))
+
     emb = params["embed"]
-    read = n_bytes - emb.numel() * emb.element_size() \
+    read = n_bytes({k: v for k, v in params.items()
+                    if k not in ("embed", "enc_blocks", "enc_norm")}) \
         + 4 * emb.shape[1] * emb.element_size()
+    cross = sum(n_bytes(e[n]) for part in caches.values()
+                for e in part.values() for n in ("xk", "xv") if n in e)
+    what = "the weights it reads"
+    if cross:
+        read += cross
+        what += f" and the encoder's keys and values ({cross} bytes)"
     print(f"[{smi}] one decode step of 4 slots: {ms:.3f} ms device in "
-          f"{n:g} device activities; the weights it reads, {read} bytes, take "
+          f"{n:g} device activities; {what}, {read} bytes, take "
           f"{read / hw.HBM_BW * 1e3:.3f} ms at {hw.HBM_BW / 1e12:.2f} TB/s "
           f"({100 * read / hw.HBM_BW * 1e3 / ms:.1f}% of the bound)")
 
@@ -2276,10 +2465,35 @@ QPM = {"qwen1.5-4b": (3_950_369_280, 40, 81),
            "minicpm3-4b": (4_261_902_848, 0, 249)}
 QPM_TRAIN_LAYERS = 8    # (flash, RMSNorm) a train step at that depth:
 QPM_STEP = {"qwen1.5-4b": (16, 33), "minicpm3-4b": (0, 65)}
+# whisper-base (encoder-decoder) and internvl2-2b (patch frontend): phases
+# 46-54, at full width and depth.  internvl2-2b's engine serve is text only,
+# as the reference's: (parameters, flash, RMSNorm) as ``QPM``'s.
+WHISPER, INTERNVL2 = "whisper-base", "internvl2-2b"
+ENGINE_SERVES = {**QPM, INTERNVL2: (1_889_146_880, 24, 49)}
+
+
+def draw_on_card(torch, model_lib, cfg, n_params):
+    """From the memory the earlier phases leave (printed after a collection
+    and ``empty_cache``), ``cfg``'s bf16 weights, ``n_params`` of them,
+    drawn on the card from a CUDA generator, the time printed."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"memory allocated at the start of the phase: "
+          f"{torch.cuda.memory_allocated() / 2 ** 20:.1f} MiB")
+    total = model_lib.count_params(cfg)
+    check(total == n_params, f"{cfg.name} counts {total} parameters")
+    t0 = time.perf_counter()
+    params = model_lib.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    torch.cuda.synchronize()
+    print(f"init of {total} bf16 parameters ({cfg.n_layers} layers) on the "
+          f"card from a CUDA generator: {time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2 ** 20:.1f} MiB allocated")
+    return params
 
 
 def phase_qpm_serve(torch, np, model_lib, engine, counters, perf, hw,
-                    registry, smi, arch, profile_phase=None):
+                    registry, smi, arch, profile_phase=None, params=None):
     """Phases 36, 37 and 39: from the memory the earlier phases leave
     (printed after a collection and ``empty_cache``), draw ``arch``'s bf16
     weights at full width and depth on the card from a CUDA generator (the
@@ -2294,24 +2508,16 @@ def phase_qpm_serve(torch, np, model_lib, engine, counters, perf, hw,
     ln1, ln2, q_norm, kv_norm, and the final norm).  Then one decode step's
     device time against the HBM time of its weights (``decode_vs_hbm``);
     with ``profile_phase``, the first 4 requests under torch.profiler with
-    attention and the FFN labelled (``profile_first_wave``, phase 38).  Returns the serve's launch counts."""
+    attention and the FFN labelled (``profile_first_wave``, phase 38).
+    Phase 47 serves internvl2-2b the same way, text only, on ``params``
+    it was given (24 flash and 49 RMSNorm).  Returns the serve's launch
+    counts."""
     from repro_torch.configs import get_config
 
-    gc.collect()
-    torch.cuda.empty_cache()
-    print(f"memory allocated at the start of the phase: "
-          f"{torch.cuda.memory_allocated() / 2 ** 20:.1f} MiB")
     cfg = get_config(arch)
-    n_params, flash, norms = QPM[arch]
-    total = model_lib.count_params(cfg)
-    check(total == n_params, f"{arch} counts {total} parameters")
-    t0 = time.perf_counter()
-    params = model_lib.init_params(
-        cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
-    torch.cuda.synchronize()
-    print(f"init of {total} bf16 parameters ({cfg.n_layers} layers) on the "
-          f"card from a CUDA generator: {time.perf_counter() - t0:.1f} s, "
-          f"{torch.cuda.memory_allocated() / 2 ** 20:.1f} MiB allocated")
+    n_params, flash, norms = ENGINE_SERVES[arch]
+    if params is None:
+        params = draw_on_card(torch, model_lib, cfg, n_params)
     serve = dict(lens=(128, 256), max_seq=384)
     phase_serve(torch, cfg, params, engine, counters, perf, requests=2,
                 **serve)  # warm-up
@@ -2427,6 +2633,194 @@ def phase_qpm_checks(torch, np, model_lib, engine, perf):
         rc = launch_train.main(["--arch", arch, "--reduced", "--steps", "20",
                                 *flags])
         check(rc == 0, f"launch.train {arch} exited {rc}")
+
+
+def phase_model_serve(torch, np, model_lib, engine, counters, perf, smi, cfg,
+                      params, *, prompts=(128, 256), requests=4, new=32):
+    """Phases 46 and 48: serve ``cfg`` at the model level, as the
+    reference's own tests serve whisper (its engine takes no frames): for
+    each prompt length of ``prompts`` a batch of ``requests`` requests,
+    each with its frontend embeddings (whisper's 1500 frames, internvl2's
+    256 patches) from ``SyntheticLM.frontend`` in the model dtype; a
+    prefill (the encoder's pass included) gives each request's first token
+    and ``new`` - 1 greedy decode steps the rest, at ``cache_len`` P + S +
+    step.  After a warm-up pass, the counters are set to 0 just before and
+    must read ``serve_launches`` of the prefills and decode steps.  Prints
+    tokens/s, prefill and decode ms, peak memory and, with an encoder, its
+    device ms for one batch alone.  Returns the launch counts."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.data import DataConfig, SyntheticLM
+
+    rng = np.random.default_rng(1)
+    batches = [(torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                             (requests, S)), device="cuda"),
+                SyntheticLM(DataConfig(cfg.vocab_size, S, requests, i))
+                .frontend(0, cfg, "cuda"))
+               for i, S in enumerate(prompts)]
+
+    def run():
+        pre, dec, out = [], [], []
+        for tokens, fe in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = model_lib.prefill(params, cfg, tokens, fe)
+            tok = torch.argmax(logits, dim=-1)
+            torch.cuda.synchronize()
+            pre.append(time.perf_counter() - t0)
+            cache = grow_caches(torch, cache, engine.TIME_AXIS_LEAVES, new)
+            chosen, start = [tok], patches(cfg) + tokens.shape[1]
+            for step in range(new - 1):
+                t0 = time.perf_counter()
+                logits, cache = model_lib.decode_step(
+                    params, cfg, tok[:, None], cache, start + step)
+                tok = torch.argmax(logits, dim=-1)
+                torch.cuda.synchronize()
+                dec.append(time.perf_counter() - t0)
+                chosen.append(tok)
+            out.append(torch.stack(chosen, dim=1).cpu())
+        return pre, dec, out
+
+    with perf.perf_flags(perf.PerfFlags(flash_kernel=True)):
+        run()   # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+        t0 = time.perf_counter()
+        pre, dec, out = run()
+        wall = time.perf_counter() - t0
+        counts = {name: getattr(mod, attr) for name, (mod, attr) in
+                  counters.items()}
+        expect = serve_launches(cfg, len(pre), len(dec))
+        peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+        enc_ms = None
+        if cfg.is_encdec:
+            fe = batches[0][1]
+            enc_ms = cuda_ms(lambda: tf.encode(params, cfg, fe), iters=10,
+                             warmup=2)
+    n_tok = sum(o.numel() for o in out)
+    front = (f"{cfg.encoder.source_len} frames" if cfg.is_encdec
+             else f"{patches(cfg)} patches")
+    print(f"[{smi}] {cfg.name} at the model level, {len(batches)} batches of "
+          f"{requests} requests ({front} and "
+          f"{'/'.join(map(str, prompts))} tokens each), {new} new tokens "
+          f"each: {n_tok} tokens in {wall * 1e3:.1f} ms, "
+          f"{n_tok / wall:.1f} tokens/s; prefill {np.mean(pre) * 1e3:.3f} ms "
+          f"mean (first token included); decode {len(dec)} steps x "
+          f"{np.mean(dec) * 1e3:.3f} ms mean, {np.median(dec) * 1e3:.3f} ms "
+          f"median ({requests} rows); peak memory allocated {peak_mb:.1f} MiB"
+          + (f"; the encoder alone over {requests} x "
+             f"{cfg.encoder.source_len} frames {enc_ms:.3f} ms (CUDA events)"
+             if enc_ms is not None else ""))
+    print(f"launches on the main path: {counts} (expected {expect})")
+    check(counts == expect, f"launch counts {counts} != {expect}")
+    check(all(o.shape == (requests, new) and int(o.min()) >= 0
+              and int(o.max()) < cfg.vocab_size for o in out),
+          "bad completions")
+    return counts
+
+
+def phase_whisper_internvl2(torch, np, model_lib, engine, counters, perf, hw,
+                            registry, smi, by_path):
+    """Phases 46-52: whisper-base served at the model level (46) and
+    internvl2-2b through ``ServeEngine``, text only (47), and at the model
+    level with its patches (48), at full width and depth with their bf16
+    weights drawn on the card; each decode step's device time against the
+    HBM time of what it reads; then both trained at full width and depth
+    through ``launch.train.main`` (49-52), each batch with its frames or
+    patches.  Adds each path's launch counts to ``by_path``."""
+    from repro_torch.configs import get_config
+
+    print(f"=== 46. serve {WHISPER} at the model level, full width and "
+          f"depth, bf16, flash_kernel: 2 batches of 4 requests of 1500 "
+          f"frames and 128 / 256 tokens [{smi}] ===")
+    cfg = get_config(WHISPER)
+    params = draw_on_card(torch, model_lib, cfg, 97_166_336)
+    by_path[f"serve {WHISPER} (model level)"] = phase_model_serve(
+        torch, np, model_lib, engine, counters, perf, smi, cfg, params)
+    decode_vs_hbm(torch, model_lib, hw, cfg, params, smi, 512)
+    del params
+
+    print(f"=== 47. serve {INTERNVL2}, full width and depth, bf16, "
+          f"flash_kernel, through ServeEngine (text only) [{smi}] ===")
+    cfg = get_config(INTERNVL2)
+    params = draw_on_card(torch, model_lib, cfg, ENGINE_SERVES[INTERNVL2][0])
+    by_path[f"serve {INTERNVL2}"] = phase_qpm_serve(
+        torch, np, model_lib, engine, counters, perf, hw, registry, smi,
+        INTERNVL2, params=params)
+    print(f"=== 48. serve {INTERNVL2} at the model level: 4 requests of 256 "
+          f"patches and 128 tokens [{smi}] ===")
+    by_path[f"serve {INTERNVL2} (model level, patches)"] = phase_model_serve(
+        torch, np, model_lib, engine, counters, perf, smi, cfg, params,
+        prompts=(128,))
+    del params
+
+    for phase, arch, front in ((49, WHISPER, "8 x 1500 frames"),
+                               (51, INTERNVL2, "8 x 256 patches")):
+        print(f"=== {phase}. train {arch}, full width and depth, bf16, "
+              f"flash_kernel, remat 'full', {front} a step, through "
+              f"launch.train [{smi}] ===")
+        gc.collect()
+        torch.cuda.empty_cache()
+        by_path[f"train {arch}"] = phase_train(
+            torch, np, counters, registry, perf, smi, arch,
+            ("--flags", "flash_kernel"), phase=phase)
+
+
+def phase_whisper_internvl2_checks(torch, np, model_lib, engine, perf):
+    """Phases 53-54.  53: float32, norm scales planted (``plant``), card
+    against CPU within 1e-4: whisper-base at full width and depth (a
+    prefill of 1500 frames and 128 tokens and 8 greedy decode steps; 2
+    train steps, the encoder's gradients among the leaves) and
+    internvl2-2b at full width and 1 layer with 256 patches, the same.
+    54: reduced whisper and internvl2 in float32 with ``flash_kernel`` (D
+    16), planted, card against CPU: prefill and decode logits, then 2
+    train steps; ``launch.train`` (20 steps) of each exits 0, as does
+    ``launch.serve`` of internvl2; ``launch.serve`` of whisper exits 1 with
+    the port's message (its engine takes no frames, as the reference's)."""
+    import io
+
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.launch import train as launch_train
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"=== 53. card vs CPU, float32, norm scales planted: {WHISPER} at "
+          f"full width and depth (1500 frames, 128 tokens), {INTERNVL2} at "
+          "full width and 1 layer (256 patches, 128 tokens): prefill, 8 "
+          "decode steps, 2 train steps ===")
+    for cfg in (get_config(WHISPER),
+                dataclasses.replace(get_config(INTERNVL2), n_layers=1)):
+        card_vs_cpu(torch, np, model_lib, perf, engine.TIME_AXIS_LEAVES, cfg,
+                    128, planted=True)
+        train_card_vs_cpu(torch, perf, dataclasses.replace(
+            cfg, dtype="float32"), planted=True)
+        gc.collect()
+
+    print(f"=== 54. card vs CPU, reduced {WHISPER} and {INTERNVL2}, float32, "
+          "flash_kernel (D 16), planted; launch.train and launch.serve "
+          "--reduced ===")
+    flags = ["--flags", "flash_kernel"]
+    for arch in (WHISPER, INTERNVL2):
+        small = reduced_config(get_config(arch))
+        card_vs_cpu(torch, np, model_lib, perf, engine.TIME_AXIS_LEAVES,
+                    small, 64, planted=True)
+        train_card_vs_cpu(torch, perf, small, planted=True)
+        rc = launch_train.main(["--arch", arch, "--reduced", "--steps", "20",
+                                *flags])
+        check(rc == 0, f"launch.train {arch} exited {rc}")
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            rc = launch_serve.main(["--arch", arch, "--reduced", *flags])
+        if arch == WHISPER:
+            check(rc == 1 and "needs frames" in err.getvalue(),
+                  f"launch.serve {arch} exited {rc}: {err.getvalue()}")
+            print(f"  launch.serve {arch} exits 1: "
+                  f"{err.getvalue().strip()}")
+        else:
+            check(rc == 0, f"launch.serve {arch} exited {rc}: "
+                  f"{err.getvalue()}")
 
 
 def main() -> int:
@@ -2641,8 +3035,11 @@ def main() -> int:
               "RMSNorm a step")
         by_path[f"train {arch}, {QPM_TRAIN_LAYERS} layers"] = counts
     phase_qpm_checks(torch, np, model_lib, engine, perf)
+    phase_whisper_internvl2(torch, np, model_lib, engine, counters, perf, hw,
+                            registry, smi, by_path)
+    phase_whisper_internvl2_checks(torch, np, model_lib, engine, perf)
 
-    print(f"=== 46. summary (whole run {time.perf_counter() - t_all:.1f} s) "
+    print(f"=== 55. summary (whole run {time.perf_counter() - t_all:.1f} s) "
           "===")
     for path, counts in by_path.items():
         print(f"launches, {path}: {counts}")

@@ -193,6 +193,7 @@ def _ensure_loaded():
     # The port registers the architectures it serves; each slice adds its own.
     import repro_torch.configs.gemma3_1b  # noqa: F401
     import repro_torch.configs.granite_moe_1b  # noqa: F401
+    import repro_torch.configs.internvl2_2b  # noqa: F401
     import repro_torch.configs.jamba15_large  # noqa: F401
     import repro_torch.configs.llsc_100m  # noqa: F401
     import repro_torch.configs.mamba2_370m  # noqa: F401
@@ -200,6 +201,7 @@ def _ensure_loaded():
     import repro_torch.configs.phi3_medium_14b  # noqa: F401
     import repro_torch.configs.qwen15_4b  # noqa: F401
     import repro_torch.configs.qwen3_moe_30b  # noqa: F401
+    import repro_torch.configs.whisper_base  # noqa: F401
 
 
 # --------------------------------------------------------------------------

@@ -1,6 +1,6 @@
-"""GQA attention, global and sliding-window, with or without QKV bias, and
-multi-head latent attention (counterpart of ``repro.models.attention``
-but for its encoder-decoder cross attention).
+"""GQA attention, global and sliding-window, with or without QKV bias,
+encoder-decoder cross attention, and multi-head latent attention
+(counterpart of ``repro.models.attention``).
 
 Prefill attention of a global, uncapped layer goes to the flash kernel when
 ``PerfFlags.flash_kernel`` is set and the reference's gate holds;
@@ -9,6 +9,10 @@ PyTorch, as the reference's is jnp.  A local (sliding-window) layer has the
 reference's two paths: masked (full-length scores, the window a mask) and
 banded (each query chunk reads only its band of keys), the latter under
 ``banded=True`` or the ``banded_local`` PerfFlag.
+
+Cross attention (whisper's decoder over the encoder's output) is
+:func:`chunked_attention` without a causal mask, as the reference's: no
+flash, no RoPE, no bias.
 
 MLA (minicpm3) never takes flash, as in the reference: prefill and
 training materialize each head's key and value from the latent and run
@@ -192,6 +196,31 @@ def gqa_decode(params, x, cfg, cache_k, cache_v, cache_len, *,
                             softcap=cfg.attn_logit_softcap)
     B = x.shape[0]
     return out.reshape(B, 1, -1) @ params["wo"], cache_k, cache_v
+
+
+# --------------------------------------------------------------------------
+# Cross attention (encoder-decoder)
+# --------------------------------------------------------------------------
+
+
+def cross_attention(params, x, enc_k, enc_v, cfg):
+    """x [B,S,D] attends, without a causal mask, over the encoder's keys
+    and values enc_k, enc_v [B,S_enc,Hk,Dh] (``cross_kv``'s, or the cache's
+    ``xk`` and ``xv``)."""
+    B, S, _ = x.shape
+    q = (x @ params["wq"]).reshape(B, S, cfg.n_heads, cfg.d_head)
+    out = chunked_attention(q, enc_k, enc_v, causal=False,
+                            chunk=cfg.attn_chunk)
+    return out.reshape(B, S, -1) @ params["wo"]
+
+
+def cross_kv(params, enc_out, n_kv_heads, d_head):
+    """The keys and values of the encoder's output enc_out [B,S_enc,D],
+    each [B,S_enc,n_kv_heads,d_head]."""
+    B, S, _ = enc_out.shape
+    k = (enc_out @ params["wk"]).reshape(B, S, n_kv_heads, d_head)
+    v = (enc_out @ params["wv"]).reshape(B, S, n_kv_heads, d_head)
+    return k, v
 
 
 # --------------------------------------------------------------------------

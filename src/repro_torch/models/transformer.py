@@ -1,5 +1,5 @@
-"""Model assembly: dense, Mamba-2, MoE and hybrid stacks (counterpart of
-``repro.models.transformer``).
+"""Model assembly: dense, Mamba-2, MoE, hybrid, vision-language and
+encoder-decoder stacks (counterpart of ``repro.models.transformer``).
 
 A model is ``n_periods`` copies of a period of layers plus a remainder.
 Each layer's mixer is the one ``cfg.layer_pattern`` names for its slot:
@@ -12,19 +12,36 @@ with ``qkv_bias`` (qwen1.5) adds biases to its projections.  Its FFN is
 the one ``cfg.mlp_pattern`` names for its slot:
 the mixture of experts (``models/moe.py``) for ``"moe"``, else the dense
 MLP of ``cfg.act``; a non-MoE block whose ``mlp`` is empty (``d_ff`` 0, as
-mamba2-370m) has no FFN and never reads ``ln2``.  The parameter and cache trees keep the
-reference's layout exactly, so that the bridge and the serving splice read
-them the same way::
+mamba2-370m) has no FFN and never reads ``ln2``.
+
+Two stub frontends feed precomputed embeddings ``frontend_embeds``
+[B,N,d]: ``patch_stub`` (internvl2) prepends N patches, cast to the
+embedding's dtype, to the tokens, and the loss pads its labels with N
+entries of -1 in front; ``audio_stub`` (whisper) gives N frames to an
+encoder (``encode``: ``cfg.encoder.n_layers`` blocks of full attention
+without positions and a GELU MLP, then ``enc_norm``), and every decoder
+block then runs ``ln_x`` and cross attention over the encoder's output
+between its self-attention and its FFN.  The frames must come in the
+encoder's weight dtype: the reference's scan refuses others, and they are
+never cast down.
+
+The parameter and cache trees keep the reference's layout exactly, so
+that the bridge and the serving splice read them the same way::
 
     params = {"embed": [V,d], "blocks": {str(p): tree[n_periods, ...]},
-              "rem": {str(i): tree}, "final_norm": {"scale": [d]}}
+              "rem": {str(i): tree}, "final_norm": {"scale": [d]},
+              "enc_blocks": tree[enc.n_layers, ...],  # encoder-decoder
+              "enc_norm": {"scale": [d]}}             # only
     caches = {"blocks": {str(p): leaves[n_periods, B, ...]},
               "rem": {str(i): leaves[B, ...]}}
 
 with cache leaves ``k``, ``v`` [B,T,Hk,Dh] in the model dtype for an
 attention layer (``ckv`` [B,T,kv_lora_rank] and ``krope``
 [B,T,qk_rope_head_dim] for an MLA layer), and ``conv`` [B,K-1,C] in the
-model dtype and ``ssd`` [B,G,HG,P,N] in float32 for a Mamba-2 layer.
+model dtype and ``ssd`` [B,G,HG,P,N] in float32 for a Mamba-2 layer; an
+encoder-decoder layer adds the encoder's keys and values ``xk``, ``xv``
+[B,S_enc,enc.n_kv_heads,d // enc.n_heads], which have no time axis to
+grow.
 
 The reference scans over the period axis; here a Python loop takes layer
 ``i`` as a view ``leaf[i]`` of each stacked leaf.  Decode writes the cache
@@ -34,13 +51,13 @@ When autograd records (a train step), each period of the stacked blocks is
 rematerialized as ``cfg.remat`` says, as the reference's ``_remat``: its
 activations are recomputed in the backward, kernels included, so a train
 step under ``"full"`` or ``"dots"`` launches every block-level forward
-kernel twice.  The remainder layers, the final norm and the serve paths
-are never rematerialized.
+kernel twice.  The remainder layers, the final norm, the encoder and the
+serve paths are never rematerialized.
 
 With the ``bf16_grads`` PerfFlag each block's output is the identity in
 the forward and rounds its cotangent to bfloat16 in the backward (the
 reference's ``_bf16_cotangent``), in the periods, their recompute and the
-remainder layers alike.
+remainder layers alike; the encoder's blocks are not wrapped.
 """
 from __future__ import annotations
 
@@ -65,24 +82,26 @@ def model_dtype(cfg) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
+FRONTENDS = ("none", "patch_stub", "audio_stub")
+
+
 def check_supported(cfg):
-    """The port's model covers dense, MoE (family ``moe``), Mamba-2 (family
-    ``ssm``) and hybrid configs whose layers are global or sliding-window
-    attention (logits capped or not, with or without QKV bias, or MLA) or
-    Mamba-2 mixers in any pattern, with SwiGLU, GeGLU or GELU dense FFNs,
-    and SwiGLU or GELU experts (the acts the reference's ``moe_ffn``
-    takes); raise for any feature a later slice brings."""
+    """The port's model covers every family of the repo: layers of global
+    or sliding-window attention (logits capped or not, with or without QKV
+    bias, or MLA) or Mamba-2 mixers in any pattern, with SwiGLU, GeGLU or
+    GELU dense FFNs, and SwiGLU or GELU experts (the acts the reference's
+    ``moe_ffn`` takes); the patch frontend, and the audio frontend with its
+    encoder.  Raise for any other act or frontend."""
     acts = ("swiglu", "gelu") if "moe" in cfg.mlp_pattern \
         else ("swiglu", "geglu", "gelu")
     missing = [name for name, present in (
-        ("family " + cfg.family,
-         cfg.family not in ("dense", "ssm", "moe", "hybrid")),
         ("act " + cfg.act, cfg.act not in acts),
-        ("encoder", cfg.encoder is not None),
-        ("frontend " + cfg.frontend, cfg.frontend != "none")) if present]
+        ("frontend " + cfg.frontend, cfg.frontend not in FRONTENDS),
+        ("frontend audio_stub without an encoder",
+         cfg.frontend == "audio_stub" and cfg.encoder is None)) if present]
     if missing:
         raise NotImplementedError(
-            f"{cfg.name}: the port does not support {', '.join(missing)} yet")
+            f"{cfg.name}: the port does not support {', '.join(missing)}")
 
 
 # ==========================================================================
@@ -90,9 +109,28 @@ def check_supported(cfg):
 # ==========================================================================
 
 
+def _attention_spec(d, H, Hk, Dh, bias=False):
+    """The reference's ``init_attention``."""
+    hd, kvd = H * Dh, Hk * Dh
+    spec = {"wq": Leaf((d, hd), d ** -0.5), "wk": Leaf((d, kvd), d ** -0.5),
+            "wv": Leaf((d, kvd), d ** -0.5), "wo": Leaf((hd, d), hd ** -0.5)}
+    if bias:
+        spec.update(bq=Leaf((hd,), fixed=zeros), bk=Leaf((kvd,), fixed=zeros),
+                    bv=Leaf((kvd,), fixed=zeros))
+    return spec
+
+
+def _mlp_spec(d, d_ff, act):
+    """The reference's ``init_mlp``."""
+    spec = {"w1": Leaf((d, d_ff), d ** -0.5),
+            "w2": Leaf((d_ff, d), d_ff ** -0.5)}
+    if act in ("swiglu", "geglu"):
+        spec["w3"] = Leaf((d, d_ff), d ** -0.5)
+    return spec
+
+
 def _block_spec(cfg, kind, mlp_kind):
-    d, hd = cfg.d_model, cfg.n_heads * cfg.d_head
-    kvd = cfg.n_kv_heads * cfg.d_head
+    d = cfg.d_model
     spec = {"ln1": {"scale": Leaf((d,))},
             "ln2": {"scale": Leaf((d,))}}
     if kind == "ssm":
@@ -100,23 +138,28 @@ def _block_spec(cfg, kind, mlp_kind):
     elif cfg.mla is not None:
         spec["mixer"] = _mla_spec(d, cfg.n_heads, cfg.mla)
     else:
-        spec["mixer"] = {"wq": Leaf((d, hd), d ** -0.5),
-                         "wk": Leaf((d, kvd), d ** -0.5),
-                         "wv": Leaf((d, kvd), d ** -0.5),
-                         "wo": Leaf((hd, d), hd ** -0.5)}
-        if cfg.qkv_bias:
-            spec["mixer"].update(bq=Leaf((hd,), fixed=zeros),
-                                 bk=Leaf((kvd,), fixed=zeros),
-                                 bv=Leaf((kvd,), fixed=zeros))
+        spec["mixer"] = _attention_spec(d, cfg.n_heads, cfg.n_kv_heads,
+                                        cfg.d_head, cfg.qkv_bias)
+    if cfg.is_encdec:
+        spec["ln_x"] = {"scale": Leaf((d,))}
+        spec["xattn"] = _attention_spec(d, cfg.n_heads, cfg.n_kv_heads,
+                                        cfg.d_head)
     spec["mlp"] = {}    # attention-free SSM blocks (mamba2) have no FFN
     if mlp_kind == "moe":
         spec["mlp"] = moe_mod.moe_spec(d, cfg.moe)
     elif cfg.d_ff > 0:
-        spec["mlp"] = {"w1": Leaf((d, cfg.d_ff), d ** -0.5),
-                       "w2": Leaf((cfg.d_ff, d), cfg.d_ff ** -0.5)}
-        if cfg.act in ("swiglu", "geglu"):
-            spec["mlp"]["w3"] = Leaf((d, cfg.d_ff), d ** -0.5)
+        spec["mlp"] = _mlp_spec(d, cfg.d_ff, cfg.act)
     return spec
+
+
+def _enc_block_spec(cfg):
+    """The reference's ``_init_enc_block``: heads of d // enc.n_heads, no
+    bias, a GELU MLP of ``enc.d_ff``."""
+    enc, d = cfg.encoder, cfg.d_model
+    return {"ln1": {"scale": Leaf((d,))}, "ln2": {"scale": Leaf((d,))},
+            "mixer": _attention_spec(d, enc.n_heads, enc.n_kv_heads,
+                                     d // enc.n_heads),
+            "mlp": _mlp_spec(d, enc.d_ff, "gelu")}
 
 
 def _mla_spec(d, H, mla):
@@ -149,6 +192,11 @@ def leaves(tree):
         yield tree
 
 
+def _stacked(spec, n):
+    return _tree_map(lambda leaf: leaf._replace(shape=(n,) + leaf.shape),
+                     spec)
+
+
 def param_spec(cfg):
     """The parameter tree as :class:`~repro_torch.models.layers.Leaf`
     leaves: shape, init kind and dtype, as ``init_params`` of the reference
@@ -157,9 +205,8 @@ def param_spec(cfg):
     d, V = cfg.d_model, cfg.vocab_size
     spec = {"embed": Leaf((V, d), d ** -0.5)}
     spec["blocks"] = {
-        str(p): _tree_map(
-            lambda leaf: leaf._replace(shape=(cfg.n_periods,) + leaf.shape),
-            _block_spec(cfg, cfg.layer_pattern[p], cfg.mlp_pattern[p]))
+        str(p): _stacked(_block_spec(cfg, cfg.layer_pattern[p],
+                                     cfg.mlp_pattern[p]), cfg.n_periods)
         for p in range(cfg.period)}
     spec["rem"] = {str(i): _block_spec(cfg, cfg.layer_pattern[i],
                                        cfg.mlp_pattern[i])
@@ -167,6 +214,10 @@ def param_spec(cfg):
     spec["final_norm"] = {"scale": Leaf((d,))}
     if not cfg.tie_embeddings:
         spec["lm_head"] = Leaf((d, V), d ** -0.5)
+    if cfg.is_encdec:
+        spec["enc_blocks"] = _stacked(_enc_block_spec(cfg),
+                                      cfg.encoder.n_layers)
+        spec["enc_norm"] = {"scale": Leaf((d,))}
     return spec
 
 
@@ -277,11 +328,20 @@ class _BF16Cotangent(torch.autograd.Function):
         return g.to(torch.bfloat16).to(g.dtype)
 
 
-def apply_block_full(bp, x, cfg, kind, mlp_kind, positions, *,
-                     want_aux=False):
+def _enc_kv_heads(cfg):
+    """(KV heads, head dim) of the encoder's attention and of the cross
+    attention's keys and values."""
+    enc = cfg.encoder
+    return enc.n_kv_heads, cfg.d_model // enc.n_heads
+
+
+def apply_block_full(bp, x, cfg, kind, mlp_kind, positions, enc_out=None,
+                     *, want_aux=False):
     """Returns (x, cache entry of the layer in the cache's dtypes, aux):
     aux as ``_apply_mlp`` gives it.  A local layer takes the banded path
-    under the ``banded_local`` PerfFlag, as the reference's.
+    under the ``banded_local`` PerfFlag, as the reference's.  In an
+    encoder-decoder model ``ln_x`` and cross attention over ``enc_out``
+    follow the self-attention, and the entry holds their ``xk``, ``xv``.
     Under the ``bf16_grads`` PerfFlag the block's output goes through
     ``_BF16Cotangent``."""
     h = rmsnorm(bp["ln1"], x, cfg.norm_eps)
@@ -299,7 +359,14 @@ def apply_block_full(bp, x, cfg, kind, mlp_kind, positions, *,
             bp["mixer"], h, cfg, local=local, positions=positions,
             banded=local and _perf().banded_local)
         cache = {"k": k.to(dt), "v": v.to(dt)}
-    x, aux = _apply_mlp(bp, x + y, cfg, mlp_kind, want_aux=want_aux)
+    x = x + y
+    if cfg.is_encdec:
+        h = rmsnorm(bp["ln_x"], x, cfg.norm_eps)
+        cache["xk"], cache["xv"] = attn_mod.cross_kv(bp["xattn"], enc_out,
+                                                     *_enc_kv_heads(cfg))
+        x = x + attn_mod.cross_attention(bp["xattn"], h, cache["xk"],
+                                         cache["xv"], cfg)
+    x, aux = _apply_mlp(bp, x, cfg, mlp_kind, want_aux=want_aux)
     if _perf().bf16_grads:
         x = _BF16Cotangent.apply(x)
     return x, cache, aux
@@ -317,11 +384,50 @@ def apply_block_decode(bp, x, cfg, kind, mlp_kind, cache, cache_len):
         y, _, _ = attn_mod.gqa_decode(bp["mixer"], h, cfg, cache["k"],
                                       cache["v"], cache_len,
                                       local=kind == "attn_local")
-    return _apply_mlp(bp, x + y, cfg, mlp_kind)[0]
+    x = x + y
+    if cfg.is_encdec:
+        h = rmsnorm(bp["ln_x"], x, cfg.norm_eps)
+        x = x + attn_mod.cross_attention(bp["xattn"], h, cache["xk"],
+                                         cache["xv"], cfg)
+    return _apply_mlp(bp, x, cfg, mlp_kind)[0]
 
 
-def input_embeddings(params, cfg, tokens):
-    return embed(params["embed"], tokens, cfg.embed_scale)
+def input_embeddings(params, cfg, tokens, frontend_embeds=None):
+    """The token embeddings, after ``patch_stub``'s patches (cast to the
+    embedding's dtype) where given."""
+    x = embed(params["embed"], tokens, cfg.embed_scale)
+    if cfg.frontend == "patch_stub" and frontend_embeds is not None:
+        x = torch.cat([frontend_embeds.to(x.dtype), x], dim=1)
+    return x
+
+
+def encode(params, cfg, frames):
+    """frames [B,S_enc,d] (the audio stub's output) -> the encoder's
+    output [B,S_enc,d] after ``enc_norm``, as the reference's ``encode``:
+    each layer ln1, attention without a causal mask and without positions
+    (plain chunked attention, as the reference's jnp, over heads of d //
+    enc.n_heads), ln2 and the tanh-GELU MLP.  Raises ``TypeError`` for
+    frames in another dtype than the encoder's weights."""
+    if frames is None:
+        raise ValueError(f"{cfg.name}: an encoder-decoder model needs its "
+                         "frames (frontend_embeds)")
+    enc = cfg.encoder
+    w = params["enc_blocks"]["mixer"]["wq"]
+    if frames.dtype != w.dtype:
+        raise TypeError(f"{cfg.name}: frames in {frames.dtype}, the "
+                        f"encoder's weights in {w.dtype}")
+    Hk, d_head = _enc_kv_heads(cfg)
+    x = frames
+    for i in range(enc.n_layers):
+        bp = _layer(params["enc_blocks"], i)
+        h = rmsnorm(bp["ln1"], x, cfg.norm_eps)
+        q, k, v = attn_mod.gqa_project_qkv(bp["mixer"], h, enc.n_heads, Hk,
+                                           d_head)
+        o = attn_mod.chunked_attention(q, k, v, causal=False,
+                                       chunk=cfg.attn_chunk)
+        x = x + o.reshape(x.shape[0], x.shape[1], -1) @ bp["mixer"]["wo"]
+        x = x + mlp(bp["mlp"], rmsnorm(bp["ln2"], x, cfg.norm_eps), "gelu")
+    return rmsnorm(params["enc_norm"], x, cfg.norm_eps)
 
 
 # The outputs that ``"dots"`` keeps: the matrix products', as
@@ -368,24 +474,29 @@ def _records(params) -> bool:
         t.requires_grad for t in leaves(params))
 
 
-def forward_hidden(params, cfg, tokens, *, want_cache=False,
-                   want_aux=False):
-    """tokens [B,S] -> (hidden [B,S,d] after the final norm, caches or
+def forward_hidden(params, cfg, tokens, frontend_embeds=None, *,
+                   want_cache=False, want_aux=False):
+    """tokens [B,S] -> (hidden [B,S',d] after the final norm, caches or
     None), or with ``want_aux`` (hidden, caches, aux [2]): the MoE blocks'
     (load_balance, z) router losses summed and divided by ``cfg.n_layers``,
-    every layer counted, as the reference's.  Each period of the stacked
-    blocks goes through ``_remat`` when autograd records, its share of aux
-    one of its outputs."""
+    every layer counted, as the reference's.  ``frontend_embeds`` are the
+    encoder's frames of an encoder-decoder model, or the P patches a
+    ``patch_stub`` model puts before the tokens (S' = P + S).  Each period
+    of the stacked blocks goes through ``_remat`` when autograd records,
+    the encoder's output one of its inputs and its share of aux one of its
+    outputs."""
     check_supported(cfg)
-    x = input_embeddings(params, cfg, tokens)
+    enc_out = encode(params, cfg, frontend_embeds) if cfg.is_encdec \
+        else None
+    x = input_embeddings(params, cfg, tokens, frontend_embeds)
     positions = torch.arange(x.shape[1], device=x.device)
 
-    def period_fn(x, aux, pparams):
+    def period_fn(x, aux, enc_out, pparams):
         caches = {}
         for p in range(cfg.period):
             x, caches[str(p)], a = apply_block_full(
                 pparams[str(p)], x, cfg, cfg.layer_pattern[p],
-                cfg.mlp_pattern[p], positions, want_aux=want_aux)
+                cfg.mlp_pattern[p], positions, enc_out, want_aux=want_aux)
             if a is not None:
                 aux = aux + a
         return x, aux, caches
@@ -395,7 +506,7 @@ def forward_hidden(params, cfg, tokens, *, want_cache=False,
     aux = torch.zeros(2, dtype=F32, device=x.device) if want_aux else None
     stacked = []
     for i in range(cfg.n_periods):
-        x, aux, c = period_fn(x, aux, {
+        x, aux, c = period_fn(x, aux, enc_out, {
             str(p): _layer(params["blocks"][str(p)], i)
             for p in range(cfg.period)})
         if want_cache:
@@ -404,7 +515,7 @@ def forward_hidden(params, cfg, tokens, *, want_cache=False,
     for r in range(cfg.n_remainder):
         x, rem[str(r)], a = apply_block_full(
             params["rem"][str(r)], x, cfg, cfg.layer_pattern[r],
-            cfg.mlp_pattern[r], positions, want_aux=want_aux)
+            cfg.mlp_pattern[r], positions, enc_out, want_aux=want_aux)
         if a is not None:
             aux = aux + a
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
@@ -471,24 +582,31 @@ def chunked_ce_loss(params, cfg, hidden, labels):
     return loss_sum / count.clamp(min=1)
 
 
-def lm_loss(params, cfg, tokens, labels, *, aux_weights=None):
+def lm_loss(params, cfg, tokens, labels, frontend_embeds=None, *,
+            aux_weights=None):
     """Mean next-token CE of ``tokens`` [B,S] against ``labels`` [B,S]
-    (-1 = ignore), the reference's ``lm_loss`` for the configs
-    ``check_supported`` takes (no frontend).  ``aux_weights=(lb_w, z_w)``
-    adds lb_w * load_balance + z_w * z of ``forward_hidden(want_aux=)``;
-    ignored for a config without MoE."""
+    (-1 = ignore), the reference's ``lm_loss``; ``frontend_embeds`` as
+    ``forward_hidden`` takes them, a ``patch_stub`` model's P patches
+    padding the labels with P entries of -1 in front.
+    ``aux_weights=(lb_w, z_w)`` adds lb_w * load_balance + z_w * z of
+    ``forward_hidden(want_aux=)``; ignored for a config without MoE."""
     want_aux = aux_weights is not None and cfg.moe is not None
-    if not want_aux:
-        hidden, _ = forward_hidden(params, cfg, tokens)
-        return chunked_ce_loss(params, cfg, hidden, labels)
-    hidden, _, aux = forward_hidden(params, cfg, tokens, want_aux=True)
-    return (chunked_ce_loss(params, cfg, hidden, labels)
-            + aux_weights[0] * aux[0] + aux_weights[1] * aux[1])
+    out = forward_hidden(params, cfg, tokens, frontend_embeds,
+                         want_aux=want_aux)
+    if cfg.frontend == "patch_stub" and frontend_embeds is not None:
+        labels = torch.nn.functional.pad(
+            labels, (frontend_embeds.shape[1], 0), value=-1)
+    loss = chunked_ce_loss(params, cfg, out[0], labels)
+    if want_aux:
+        loss = loss + aux_weights[0] * out[2][0] + aux_weights[1] * out[2][1]
+    return loss
 
 
-def prefill(params, cfg, tokens):
-    """Returns (last-token logits [B,V] fp32, caches)."""
-    hidden, caches = forward_hidden(params, cfg, tokens, want_cache=True)
+def prefill(params, cfg, tokens, frontend_embeds=None):
+    """Returns (last-token logits [B,V] fp32, caches); ``frontend_embeds``
+    as ``forward_hidden`` takes them."""
+    hidden, caches = forward_hidden(params, cfg, tokens, frontend_embeds,
+                                    want_cache=True)
     return logits_last(params, cfg, hidden), caches
 
 
@@ -509,7 +627,7 @@ def decode_step(params, cfg, token, caches, cache_len):
     return logits_last(params, cfg, x), caches
 
 
-def _block_cache(cfg, kind, lead, B, T, device):
+def _mixer_cache(cfg, kind, lead, B, T, device):
     dt = model_dtype(cfg)
     if kind == "ssm":
         spec = cfg.ssm
@@ -528,6 +646,17 @@ def _block_cache(cfg, kind, lead, B, T, device):
                                      dtype=dt, device=device)}
     shape = lead + (B, T, cfg.n_kv_heads, cfg.d_head)
     return {n: torch.zeros(shape, dtype=dt, device=device) for n in ("k", "v")}
+
+
+def _block_cache(cfg, kind, lead, B, T, device):
+    """A layer's zero cache; an encoder-decoder layer's ``xk``, ``xv``
+    span the encoder's ``source_len`` positions."""
+    cache = _mixer_cache(cfg, kind, lead, B, T, device)
+    if cfg.is_encdec:
+        shape = lead + (B, cfg.encoder.source_len) + _enc_kv_heads(cfg)
+        cache.update({n: torch.zeros(shape, dtype=model_dtype(cfg),
+                                     device=device) for n in ("xk", "xv")})
+    return cache
 
 
 def init_cache(cfg, B: int, T: int, *, device):

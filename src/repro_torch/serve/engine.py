@@ -7,6 +7,12 @@ between steps).  Each decode step publishes its achieved utilization to the
 LLload job registry, and the :class:`OverloadController` watches the duty
 cycle to propose the next slot count 1 -> 2 -> 4 -> 8, as LLSC steps
 tasks per GPU.  Decoding is greedy.
+
+Requests are tokens only, as the reference's: a ``patch_stub`` model
+(internvl2) is served as a text-only LM, and an encoder-decoder model
+(whisper), which needs frames to encode, is refused; it is served at the
+model level (``model.prefill(params, cfg, tokens, frames)``, then
+``decode_step``).
 """
 from __future__ import annotations
 
@@ -64,6 +70,11 @@ class ServeEngine:
     """Single-device engine; slots decode in lockstep with per-slot lengths."""
 
     def __init__(self, cfg, params, ecfg: EngineConfig):
+        if cfg.is_encdec:
+            raise NotImplementedError(
+                f"{cfg.name}: ServeEngine takes token prompts only, and an "
+                "encoder-decoder model needs frames to encode; serve it at "
+                "the model level (prefill with frames, then decode_step)")
         self.cfg = cfg
         self.params = params
         self.ecfg = ecfg

@@ -52,13 +52,14 @@ def cast_params(params, dtype):
 
 def loss_and_grads(params, cfg, batch, *, aux_weights=None):
     """(loss, gradients with respect to the float32 masters ``params``) of
-    ``lm_loss`` (with the MoE auxiliary losses at ``aux_weights``) on the
-    masters cast by ``cast_params``; the gradients are float32 and laid out
-    as ``params``."""
+    ``lm_loss`` (with the batch's ``frontend`` embeddings where it has
+    them, and the MoE auxiliary losses at ``aux_weights``) on the masters
+    cast by ``cast_params``; the gradients are float32 and laid out as
+    ``params``."""
     masters = _tree_map(lambda p: p.detach().requires_grad_(), params)
     loss = model_lib.lm_loss(cast_params(masters, cfg.dtype), cfg,
                              batch["tokens"], batch["labels"],
-                             aux_weights=aux_weights)
+                             batch.get("frontend"), aux_weights=aux_weights)
     # a leaf the forward does not read (ln2 of a block without FFN) gets a
     # zero gradient, as jax.grad gives it
     grads = iter(torch.autograd.grad(loss, list(leaves(masters)),
@@ -69,7 +70,8 @@ def loss_and_grads(params, cfg, batch, *, aux_weights=None):
 def make_train_step(cfg, opt_cfg: AdamWConfig, *, aux_weights=None):
     """Returns ``train_step(state, batch) -> (state, metrics)``; ``batch``
     holds ``tokens`` and ``labels`` [B,S] on the state's device, and the
-    metrics are ``loss``, ``grad_norm`` (0-d tensors) and ``lr``.
+    metrics are ``loss``, ``grad_norm`` (0-d tensors) and ``lr``.  A model
+    with a stub frontend takes its embeddings as the batch's ``frontend``.
     ``aux_weights=(lb, z)`` enables the MoE load-balance / router-z
     auxiliary losses (ST-MoE defaults: (0.01, 1e-3))."""
 

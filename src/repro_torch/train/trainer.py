@@ -84,7 +84,13 @@ class Trainer:
             self.opt_cfg, device=self.device)
 
     def _batch(self, step: int) -> dict:
-        return self.data.batch(step, self.device)
+        """The step's tokens and labels, and its ``frontend`` embeddings
+        for a model with a stub frontend."""
+        b = self.data.batch(step, self.device)
+        fe = self.data.frontend(step, self.cfg, self.device)
+        if fe is not None:
+            b["frontend"] = fe
+        return b
 
     def _mem_used_gb(self, state) -> float:
         if self.device.type == "cuda":

@@ -22,9 +22,10 @@ from repro_torch.models.perf_flags import PerfFlags  # noqa: E402
 
 def test_registered_archs():
     assert list_archs() == ["gemma3-1b", "granite-moe-1b-a400m",
-                            "jamba-1.5-large-398b", "llsc-100m",
-                            "mamba2-370m", "minicpm3-4b", "phi3-medium-14b",
-                            "qwen1.5-4b", "qwen3-moe-30b-a3b"]
+                            "internvl2-2b", "jamba-1.5-large-398b",
+                            "llsc-100m", "mamba2-370m", "minicpm3-4b",
+                            "phi3-medium-14b", "qwen1.5-4b",
+                            "qwen3-moe-30b-a3b", "whisper-base"]
 
 
 MOE_ARCHS = ["granite-moe-1b-a400m", "qwen3-moe-30b-a3b"]
@@ -161,36 +162,48 @@ def test_param_count_equals_reference(reduced):
 
 
 def test_unsupported_features_raise():
-    """A frontend (internvl2's patch stub) stays unsupported, planted in a
-    config the port serves; QKV bias and MLA are supported since they were
-    ported with qwen1.5 and minicpm3."""
-    cfg = dataclasses.replace(get_config("llsc-100m"), frontend="patch_stub",
-                              frontend_len=8)
-    with pytest.raises(NotImplementedError, match="frontend patch_stub"):
-        model_lib.count_params(cfg)
+    """A frontend the repo has no stub for, and the audio stub without an
+    encoder to take its frames, raise; internvl2's patch stub, planted in
+    llsc-100m, is supported since it was ported with internvl2 (it adds no
+    parameter: the count is the reference's and llsc-100m's), as QKV bias
+    and MLA are since qwen1.5 and minicpm3."""
+    llsc = get_config("llsc-100m")
+    for change, match in (({"frontend": "video_stub", "frontend_len": 8},
+                           "frontend video_stub"),
+                          ({"frontend": "audio_stub"},
+                           "frontend audio_stub without an encoder")):
+        with pytest.raises(NotImplementedError, match=match):
+            model_lib.count_params(dataclasses.replace(llsc, **change))
+    patch = {"frontend": "patch_stub", "frontend_len": 8}
+    assert model_lib.count_params(dataclasses.replace(llsc, **patch)) == \
+        jax_model.count_params(dataclasses.replace(
+            jax_get_config("llsc-100m"), **patch)) == \
+        model_lib.count_params(llsc)
     for change in ({"qkv_bias": True}, {"mla": get_config("minicpm3-4b").mla}):
-        model_lib.count_params(dataclasses.replace(get_config("llsc-100m"),
-                                                   **change))
+        model_lib.count_params(dataclasses.replace(llsc, **change))
 
 
 @pytest.mark.parametrize("arch,change,match", [
-    ("internvl2-2b", {}, "frontend patch_stub"),
-    ("gemma3-1b", {"frontend": "patch_stub", "frontend_len": 16},
-     "frontend patch_stub"),
+    ("internvl2-2b", {"frontend": "video_stub"}, "frontend video_stub"),
+    ("gemma3-1b", {"frontend": "video_stub", "frontend_len": 16},
+     "frontend video_stub"),
     ("llsc-100m", {"act": "relu"}, "act relu"),
     ("granite-moe-1b-a400m", {"act": "geglu"}, "act geglu"),
     ("whisper-base", {"encoder": JaxEncoderSpec(
-        n_layers=2, n_heads=4, n_kv_heads=4, d_ff=64, source_len=16)},
-     "encoder"),
-    ("whisper-base", {}, "encoder"),
+        n_layers=2, n_heads=4, n_kv_heads=4, d_ff=64, source_len=16),
+        "act": "relu"}, "act relu"),
+    ("whisper-base", {"encoder": None},
+     "frontend audio_stub without an encoder"),
 ])
 def test_unsupported_mixes_raise(arch, change, match):
-    """A frontend (internvl2's patch stub, or one planted in gemma3), an FFN
-    act the reference's ``mlp`` does not know, GeGLU experts (the
-    reference's ``moe_ffn`` takes SwiGLU or GELU) and encoders (whisper's,
-    or a smaller one) stay unsupported; attention and Mamba-2 layers in
+    """A frontend the repo has no stub for (planted in internvl2 and in
+    gemma3), an FFN act the reference's ``mlp`` does not know (planted in
+    llsc-100m and in whisper with a smaller encoder), GeGLU experts (the
+    reference's ``moe_ffn`` takes SwiGLU or GELU) and whisper's audio stub
+    without its encoder stay unsupported; attention and Mamba-2 layers in
     one pattern (jamba), local attention (gemma3), GeGLU dense FFNs, QKV
-    bias (qwen1.5) and MLA (minicpm3) do not raise."""
+    bias (qwen1.5), MLA (minicpm3), the patch stub (internvl2) and the
+    encoder-decoder (whisper) do not raise."""
     cfg = dataclasses.replace(jax_get_config(arch), **change)
     mine = ModelConfig(**{f.name: getattr(cfg, f.name)
                           for f in dataclasses.fields(cfg)})
@@ -364,3 +377,72 @@ def test_qwen_phi3_minicpm3_counts(arch, total, layer):
         + d == total
     assert model_lib.model_flops(cfg, 256, training=False) == \
         2 * total * 256
+
+
+FRONTEND_ARCHS = ["whisper-base", "internvl2-2b"]
+
+
+@pytest.mark.parametrize("reduced", [False, True])
+@pytest.mark.parametrize("arch", FRONTEND_ARCHS)
+def test_whisper_internvl2_configs_equal_reference(arch, reduced):
+    """The copies, and their reduced forms, equal the reference's field for
+    field: reduced whisper keeps an encoder of 2 layers over 16 frames,
+    reduced internvl2 GQA (4 query and 2 KV heads) and 8 patches."""
+    mine, ref = get_config(arch), jax_get_config(arch)
+    if reduced:
+        mine, ref = reduced_config(mine), jax_reduced(ref)
+    assert dataclasses.asdict(mine) == dataclasses.asdict(ref)
+    if reduced and arch == "whisper-base":
+        enc = mine.encoder
+        assert (enc.n_layers, enc.n_heads, enc.d_ff, enc.source_len) == \
+            (2, 4, 64, 16)
+    if reduced and arch == "internvl2-2b":
+        assert (mine.n_heads, mine.n_kv_heads, mine.frontend_len) == (4, 2, 8)
+
+
+@pytest.mark.parametrize("variant", ["full", "1_layer", "reduced",
+                                     "reduced_2_layers"])
+@pytest.mark.parametrize("arch", FRONTEND_ARCHS)
+def test_whisper_internvl2_counts_and_flops_equal_reference(arch, variant):
+    """count_params, count_params_analytic (total and active) and
+    model_flops of the reference, from the shapes alone, at full depth, at
+    chip_smoke's card-against-CPU depth of internvl2 (1) and reduced.  The
+    reference's model_flops counts the encoder's parameters for every
+    decoder token; so does the port's."""
+    cfg, ref = get_config(arch), jax_get_config(arch)
+    if variant.startswith("reduced"):
+        cfg, ref = reduced_config(cfg), jax_reduced(ref)
+    change = {"1_layer": {"n_layers": 1},
+              "reduced_2_layers": {"n_layers": 2}}.get(variant, {})
+    cfg = dataclasses.replace(cfg, **change)
+    ref = dataclasses.replace(ref, **change)
+    assert model_lib.count_params(cfg) == jax_model.count_params(ref)
+    for active in (False, True):
+        assert model_lib.count_params_analytic(cfg, active) == \
+            jax_model.count_params_analytic(ref, active)
+    for training in (False, True):
+        assert model_lib.model_flops(cfg, 7, training=training) == \
+            jax_model.model_flops(ref, 7, training=training)
+
+
+@pytest.mark.parametrize("arch,total,layer,encoder", [
+    # untied 51865 x 512; a decoder layer: ln1, ln_x, ln2, self and cross
+    # attention of 4 x 512 x 512 each, GELU 2 x 512 x 2048; an encoder
+    # layer: ln1, ln2, attention, GELU; final_norm and enc_norm
+    ("whisper-base", 97_166_336,
+     3 * 512 + 8 * 512 * 512 + 2 * 512 * 2048,
+     2 * 512 + 4 * 512 * 512 + 2 * 512 * 2048),
+    # untied 92553 x 2048; q 2048 x 2048, k and v 2048 x 1024 (8 KV heads
+    # of 128), o, SwiGLU 3 x 2048 x 8192; no encoder
+    ("internvl2-2b", 1_889_146_880,
+     2 * 2048 + 2048 * (2048 + 2 * 1024) + 2048 * 2048 + 3 * 2048 * 8192,
+     0),
+])
+def test_whisper_internvl2_counts(arch, total, layer, encoder):
+    cfg = get_config(arch)
+    d, V = cfg.d_model, cfg.vocab_size
+    n_enc = cfg.encoder.n_layers if cfg.encoder else 0
+    assert model_lib.count_params(cfg) == 2 * V * d + cfg.n_layers * layer \
+        + n_enc * encoder + d * (1 + bool(n_enc)) == total
+    assert model_lib.model_flops(cfg, 256, training=True) == \
+        6 * total * 256

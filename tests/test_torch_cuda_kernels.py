@@ -56,7 +56,13 @@ def _close(got, want, dtype):
     # D = 128: qwen1.5-4b's 20 heads and phi3-medium-14b's 40 query and 10
     # KV heads (G = 4), at the serve's prefills and a train step
     (1, 20, 20, 256, 256, 128, True), (1, 40, 10, 128, 128, 128, True),
-    (1, 40, 10, 256, 256, 128, True), (8, 20, 20, 256, 256, 128, True)])
+    (1, 40, 10, 256, 256, 128, True), (8, 20, 20, 256, 256, 128, True),
+    # whisper-base's decoder (8 heads of 64) and internvl2-2b's 16 query and
+    # 8 KV heads of 128 (G = 2) over patches and tokens, at the serves'
+    # prefills and a train step
+    (1, 8, 8, 128, 128, 64, True), (8, 8, 8, 256, 256, 64, True),
+    (1, 16, 8, 384, 384, 128, True), (1, 16, 8, 512, 512, 128, True),
+    (8, 16, 8, 512, 512, 128, True)])
 def test_flash_kernel_matches_plain(dev, B, H, Hk, S, T, D, causal, dtype):
     g = torch.Generator(device=dev).manual_seed(S * D + H)
     q = torch.randn(B, H, S, D, device=dev, generator=g).to(dtype)
@@ -141,13 +147,18 @@ def test_flash_bf16_refuses_unaligned_inputs(dev):
 # widths that are not a multiple of 8 elements (scalar body); then
 # qwen1.5-4b's and minicpm3-4b's rows of 2560 (vector body), phi3-medium-
 # 14b's of 5120 (past 4096: the scalar body) and minicpm3-4b's q_norm
-# (768) and kv_norm (256) rows, at a decode step's 4 and a prefill's 256.
+# (768) and kv_norm (256) rows, at a decode step's 4 and a prefill's 256;
+# whisper-base's rows of 512 (a decode step's 4, the encoder's 4 x 1500)
+# and internvl2-2b's of 2048 (4, and a prefill's 256 patches and 128
+# tokens).
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("rows,d", [(32, 128), (33, 256), (7, 64), (4, 768),
                                     (256, 768), (1, 1000), (4, 1024),
                                     (320, 1024), (5, 100), (3, 101),
                                     (4, 2560), (256, 2560), (4, 5120),
-                                    (256, 5120), (4, 256), (256, 256)])
+                                    (256, 5120), (4, 256), (256, 256),
+                                    (4, 512), (6000, 512), (4, 2048),
+                                    (384, 2048)])
 def test_rmsnorm_kernel_matches_plain(dev, rows, d, dtype):
     g = torch.Generator(device=dev).manual_seed(rows + d)
     x = torch.randn(rows, d, device=dev, generator=g).to(dtype)
