@@ -252,11 +252,34 @@ It imports nothing of JAX or of the JAX package.  Phases:
     logits, then 2 train steps; ``launch.train`` (20 steps) of each and
     ``launch.serve`` of internvl2 exit 0; ``launch.serve`` of whisper
     exits 1 with the port's message;
-55. the launches of each main path (the serves of 4, 7, 19, 25, 30, 36,
-    37, 39, 46, 47 and 48, the train runs of 11, 14, 22, 32, 40, 42, 49
-    and 51), one ``{"kernels": [...]}`` line (each kernel's launches
-    summed over those paths), the nvidia-smi line, and last the
-    ``{"ok": true, ...}`` line.
+55. serve llsc-100m at full width and depth in bfloat16 with
+    ``flash_kernel`` as 4, in turns greedy, sampled (temperature 0.8, top
+    40, seed 0), ``top_k=1``, greedy, sampled: tokens/s and decode ms a
+    step of each; the launches exactly ``serve_launches``; the two sampled
+    serves give the same tokens, ``top_k=1`` greedy's; the draws
+    come from a CUDA generator; at the model level 8 decode steps of 4
+    rows whose drawn tokens all lie in the top 40 of their logits;
+56. reduced gemma3-1b in float32 with ``flash_kernel``:
+    ``make_train_step(banded=True)`` and ``loss_and_grads(banded=True)``
+    against the ``banded_local`` route, the same loss, gradients and
+    stepped parameters within 1e-6 of each leaf's largest;
+57. the all-to-all MoE (``models/moe_a2a.py``) on 8 gloo ranks that share
+    the card (each a process, ``chip_smoke.py --a2a-rank``; NCCL refuses
+    two ranks on one device), meshes (2, 4) and (1, 8), granite's 32
+    experts top-8 at d 1024 over x [4, 32, 1024] in float32: at capacity
+    factor 8.0 output and gradients within 2e-4 of max(1, each one's
+    largest) of ``moe_ffn_dense_reference`` on the card, at 1.0 (tokens
+    drop) of the same run with CPU tensors; the exchange's transport
+    printed (gloo with CUDA tensors: through the host);
+58. one NCCL rank, ``make_host_mesh("cuda")``: llsc-100m's train state
+    saved and restored with ``shardings=param_shardings(...)``, every
+    leaf a DTensor whose ``full_tensor()`` is the saved leaf; each of
+    55-58 prints its seconds;
+59. the launches of each main path (the serves of 4, 7, 19, 25, 30, 36,
+    37, 39, 46, 47, 48 and 55's sampled serve, the train runs of 11, 14,
+    22, 32, 40, 42, 49 and 51), one ``{"kernels": [...]}`` line (each
+    kernel's launches summed over those paths), the nvidia-smi line, and
+    last the ``{"ok": true, ...}`` line.
 
 Any failed check raises, and the script exits non-zero; without a CUDA
 device, or outside a checkout, it prints no result and exits 1.
@@ -1008,17 +1031,20 @@ def make_requests(engine_mod, vocab, n, seed, lens, new=32):
 
 
 def phase_serve(torch, cfg, params, engine, counters, perf, *, lens, max_seq,
-                profile=False, parts=None, requests=8, new=32):
+                profile=False, parts=None, requests=8, new=32, ecfg=None):
     """Phases 4, 7, 19, 25, 30, 36, 37, 39 and 47 (6, 9, 21, 26, 31 and 38 with
     ``profile``, the functions of ``parts``, (module, {label: attribute})
     pairs, under their labels; by default a MoE model's ``MOE_PARTS``):
     serve ``requests`` requests (8) of the prompt lengths ``lens``, ``new``
-    new tokens each (32), through 4 slots, with every launch counter of ``counters`` (name -> (module,
-    attribute)) set to 0 just before.  A profile with no part labelled
-    traces the device alone: tracing the host's operators as well slows
-    the host it measures and takes minutes to read."""
+    new tokens each (32), through 4 slots (``ecfg``: more fields of the
+    ``EngineConfig``, as phase 55's sampling), with every launch counter
+    of ``counters`` (name -> (module, attribute)) set to 0 just before.
+    A profile with no part labelled traces the device alone: tracing the
+    host's operators as well slows the host it measures and takes minutes
+    to read."""
     eng = engine.ServeEngine(cfg, params, engine.EngineConfig(
-        slots=4, max_seq_len=max_seq, job_name=f"chip_smoke:{cfg.name}"))
+        slots=4, max_seq_len=max_seq, job_name=f"chip_smoke:{cfg.name}",
+        **(ecfg or {})))
     for r in make_requests(engine, cfg.vocab_size, requests, seed=1,
                            lens=lens, new=new):
         eng.submit(r)
@@ -2823,6 +2849,392 @@ def phase_whisper_internvl2_checks(torch, np, model_lib, engine, perf):
                   f"{err.getvalue()}")
 
 
+# --------------------------------------------------------------------------
+# Phases 55-58: sampling, banded=, the all-to-all MoE, sharded restore
+# --------------------------------------------------------------------------
+
+SAMPLING = dict(greedy=False, temperature=0.8, top_k=40, seed=0)
+
+
+def completions(eng):
+    return {c.request_id: c.tokens for c in eng.completions}
+
+
+def phase_sampling(torch, np, model_lib, engine, counters, perf, registry,
+                   smi):
+    """Phase 55: serve llsc-100m at full width and depth in bfloat16 with
+    ``flash_kernel`` as phase 4, greedy and with ``SAMPLING`` (temperature
+    0.8, top 40, seed 0), in turns: greedy, sampled, ``top_k=1``, greedy,
+    sampled (after a warm-up of 4 requests of 8 tokens); each serve's
+    launches are counted from 0 and must read exactly ``serve_launches``,
+    the first sampled serve's being the main path's; two sampled serves
+    give the same tokens, as two greedy ones do, ``top_k=1`` greedy's, and
+    the sampled ones differ from greedy's; the draws come from a CUDA
+    generator; then at the model level a 128-token prefill of 4 rows and 8
+    decode steps, each row's token drawn by the engine's ``_select`` and in
+    the top 40 of its logits.  Returns the sampled serve's launch
+    counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import model_dtype
+
+    cfg = get_config("llsc-100m")
+    params = model_lib.init_params(cfg, torch.Generator().manual_seed(0),
+                                   device="cuda")
+    serve = dict(lens=(128, 256), max_seq=512)
+    phase_serve(torch, cfg, params, engine, counters, perf, requests=4, new=8,
+                **serve)  # warm-up
+    runs = {}
+    # in turns: greedy and sampled twice each, the host's pace drifting
+    for name, ecfg in (("greedy", {}), ("sampled", SAMPLING),
+                       ("top_k=1", {**SAMPLING, "top_k": 1}),
+                       ("greedy again", {}),
+                       ("sampled again", SAMPLING)):
+        eng, stats, counts = phase_serve(torch, cfg, params, engine,
+                                         counters, perf, ecfg=ecfg, **serve)
+        expect = serve_launches(cfg, len(eng.prefill_s), stats["steps"])
+        check(counts == expect, f"{name}: launches {counts} != {expect}")
+        runs[name] = (eng, stats, counts)
+        print(f"  {name}: {stats['tokens_per_s']:.1f} tokens/s, decode "
+              f"{np.median(eng.decode_s) * 1e3:.3f} ms a step median "
+              f"({np.mean(eng.decode_s) * 1e3:.3f} mean), prefill "
+              f"{np.mean(eng.prefill_s) * 1e3:.3f} ms mean [{smi}]")
+    eng, stats, counts = runs["sampled"]
+    report_serve(torch, np, eng, stats, counts,
+                 serve_launches(cfg, len(eng.prefill_s), stats["steps"]),
+                 cfg, registry)
+    tokens = {name: completions(run[0]) for name, run in runs.items()}
+    check(tokens["sampled"] == tokens["sampled again"],
+          "two sampled serves of one seed differ")
+    check(tokens["greedy"] == tokens["greedy again"],
+          "two greedy serves differ")
+    check(tokens["top_k=1"] == tokens["greedy"],
+          "top_k=1 does not give greedy's tokens")
+    check(tokens["sampled"] != tokens["greedy"],
+          "the sampled serve gave greedy's tokens")
+    same = sum(a == b for r in tokens["greedy"] for a, b in
+               zip(tokens["greedy"][r], tokens["sampled"][r]))
+    pace = {kind: [np.median(runs[n][0].decode_s) * 1e3 for n in
+                   (kind, kind + " again")] for kind in ("greedy", "sampled")}
+    print(f"  sampled against greedy: {same} of {stats['tokens']} tokens "
+          "the same; two sampled serves and top_k=1 against greedy: "
+          f"identical; decode ms a step median, greedy "
+          f"{pace['greedy'][0]:.3f} / {pace['greedy'][1]:.3f}, sampled "
+          f"{pace['sampled'][0]:.3f} / {pace['sampled'][1]:.3f}")
+    gen = eng.sample_generator(0)
+    check(gen.device.type == "cuda", f"the draws come from a generator on "
+          f"{gen.device}")
+
+    S, rows, top_k = 128, 4, SAMPLING["top_k"]
+    tokens_in = torch.as_tensor(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (rows, S)), device="cuda")
+    inside = 0
+    with torch.no_grad(), perf.perf_flags(perf.PerfFlags(flash_kernel=True)):
+        logits, caches = model_lib.prefill(params, cfg, tokens_in)
+        caches = grow_caches(torch, caches, engine.TIME_AXIS_LEAVES, 8)
+        for step in range(8):
+            tok = eng._select(logits, step)
+            top = torch.topk(logits, top_k, dim=-1).indices
+            inside += int((top == tok[:, None]).any(dim=1).sum())
+            logits, caches = model_lib.decode_step(
+                params, cfg, tok[:, None].to(tokens_in.dtype), caches,
+                S + step)
+    check(inside == 8 * rows, f"{8 * rows - inside} sampled tokens outside "
+          f"the top {top_k}")
+    print(f"  model level ({model_dtype(cfg)}): {inside} of {8 * rows} "
+          f"tokens drawn in the top {top_k} of their logits; generator on "
+          f"{gen.device}")
+    del params, eng, runs
+    return counts
+
+
+def phase_banded(torch, perf):
+    """Phase 56: reduced gemma3-1b (7 layers, window 8, ``attn_chunk``
+    16) in float32 on the card with ``flash_kernel``, 2 x 64 tokens:
+    ``make_train_step(banded=True)`` and ``loss_and_grads(banded=True)``
+    against the ``banded_local`` route: the same loss, and gradients and
+    the stepped parameters within 1e-6 of each leaf's largest."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models import model as model_lib
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_step as ts
+
+    cfg = reduced_config(get_config(GEMMA))
+    params = model_lib.init_params(cfg, torch.Generator().manual_seed(0),
+                                   device="cuda", dtype=torch.float32)
+    gen = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 65), generator=gen)
+    batch = {"tokens": tokens[:, :-1].cuda(), "labels": tokens[:, 1:].cuda()}
+    ocfg = ts.default_opt_cfg(cfg, total_steps=2)
+    state = ts.TrainState(params, opt.init_opt_state(params, ocfg))
+    out = {}
+    for name, banded, flags in (
+            ("banded=True", True, perf.PerfFlags(flash_kernel=True)),
+            ("banded_local", False, perf.PerfFlags(flash_kernel=True,
+                                                   banded_local=True))):
+        with perf.perf_flags(flags):
+            loss, grads = ts.loss_and_grads(params, cfg, batch, banded=banded)
+            new, met = ts.make_train_step(cfg, ocfg, banded=banded)(state,
+                                                                    batch)
+        out[name] = (float(loss), float(met["loss"]), flat(grads),
+                     flat(new.params))
+    (l1, m1, g1, p1), (l2, m2, g2, p2) = out.values()
+    check(abs(l1 - l2) <= 1e-6 * abs(l2) and abs(m1 - m2) <= 1e-6 * abs(m2),
+          f"losses {l1}, {m1} against {l2}, {m2}")
+    worst = 0.0
+    for got, want in ((g1, g2), (p1, p2)):
+        for key, (peak, gap) in grad_gaps(got, want).items():
+            worst = max(worst, gap_share(peak, gap))
+    check(worst <= 1e-6, f"banded=True against banded_local: {worst:.3e} of "
+          "a leaf's largest")
+    print(f"  loss {l1:.6f} (banded=True) and {l2:.6f} (banded_local); "
+          f"gradients and one step's parameters within {worst:.3e} of each "
+          "leaf's largest")
+
+
+# The all-to-all MoE on the card (phase 57): granite-moe-1b-a400m's experts
+# (32, top 8, d_ff 512) at its d_model of 1024, x [4, 32, 1024] float32.
+A2A_WORLD = 8
+A2A_MESHES = ((2, 4), (1, 8))
+A2A_SHAPE = (4, 32, 1024)
+# Outputs and gradients within A2A_TOL of max(1, each one's largest): a
+# gradient summed over 128 tokens of 1024-wide rows runs to hundreds, and
+# the dense oracle and the ranks sum it in other orders.
+A2A_TOL = 2e-4
+
+
+def a2a_inputs(torch):
+    """(spec, params, x) on the CPU, from seed 0."""
+    import math
+
+    from repro_torch.configs import get_config
+
+    spec = dataclasses.replace(get_config("granite-moe-1b-a400m").moe,
+                               capacity_factor=8.0)
+    d, E, f = A2A_SHAPE[-1], spec.n_experts, spec.d_ff_expert
+    gen = torch.Generator().manual_seed(0)
+    params = {"router": torch.randn(d, E, generator=gen) / math.sqrt(d),
+              "w1": torch.randn(E, d, f, generator=gen) / math.sqrt(d),
+              "w3": torch.randn(E, d, f, generator=gen) / math.sqrt(d),
+              "w2": torch.randn(E, f, d, generator=gen) / math.sqrt(f)}
+    return spec, params, torch.randn(A2A_SHAPE, generator=gen)
+
+
+def a2a_rank(rank, world, store, out):
+    """One gloo rank of phase 57 (``chip_smoke.py --a2a-rank RANK WORLD
+    STORE OUT``): on meshes (2, 4) and (1, 8), ``moe_ffn_a2a`` at capacity
+    factor 8.0 and 1.0 on the card and at 1.0 with CPU tensors, the output
+    and the gradients of sum(out**2) with respect to x and the
+    parameters; rank 0 also runs ``moe_ffn_dense_reference`` on the card
+    and writes everything to ``OUT`` (an npz)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(SRC))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_num_threads(1)        # 8 ranks on the host's 8 cores
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import moe
+    from repro_torch.models.moe_a2a import moe_ffn_a2a, transport
+
+    spec8, params, x = a2a_inputs(torch)
+
+    def run(fn, dev):
+        p = {k: v.to(dev, copy=True).requires_grad_()
+             for k, v in params.items()}
+        xx = x.to(dev, copy=True).requires_grad_()
+        y = fn(p, xx)
+        (y ** 2).sum().backward()
+        return {"y": y, "x": xx.grad, **{k: v.grad for k, v in p.items()}}
+
+    res = {"dense": run(lambda p, xx: moe.moe_ffn_dense_reference(
+        p, xx, spec8), "cuda")}
+    for shape in A2A_MESHES:
+        meshes = {dev: make_mesh(shape, ("data", "model"), device=dev)
+                  for dev in ("cuda", "cpu")}
+        if rank == 0:
+            print(f"mesh {shape}: the exchange's transport on the card is "
+                  f"{transport(meshes['cuda'].get_group('model'), 'cuda')!r}"
+                  " (gloo: the buffers go to the host and back)", flush=True)
+        for cf, devs in ((8.0, ("cuda",)), (1.0, ("cuda", "cpu"))):
+            spec = dataclasses.replace(spec8, capacity_factor=cf)
+            for dev in devs:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res[f"{shape}, {cf}, {dev}"] = run(
+                    lambda p, xx: moe_ffn_a2a(p, xx, spec, "swiglu",
+                                              meshes[dev],
+                                              fsdp_axes=("data",)), dev)
+                torch.cuda.synchronize()
+                if rank == 0:
+                    print(f"mesh {shape}, capacity {cf}, {dev}: forward and "
+                          f"backward {time.perf_counter() - t0:.3f} s",
+                          flush=True)
+    if rank == 0:
+        np.savez(out, **{f"{run_name}|{k}": v.detach().cpu().numpy()
+                         for run_name, r in res.items()
+                         for k, v in r.items()})
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_a2a(torch, np):
+    """Phase 57: the all-to-all MoE on 8 gloo ranks that share the card
+    (NCCL refuses two ranks on one device), each its own process running
+    its experts' products on the card: at capacity factor 8.0 the output
+    and gradients within ``A2A_TOL`` of ``moe_ffn_dense_reference`` on the
+    card; at 1.0 (tokens drop) within ``A2A_TOL`` of the same run with CPU
+    tensors.
+    The ranks must finish within 300 s; they are killed otherwise."""
+    import shutil
+
+    root = ROOT / "build" / "chip_smoke_a2a"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    out = root / "a2a.npz"
+    logs = [open(root / f"rank{r}.log", "w") for r in range(A2A_WORLD)]
+    procs = [subprocess.Popen(
+        [sys.executable, "-X", "faulthandler", str(Path(__file__).resolve()),
+         "--a2a-rank", str(r), str(A2A_WORLD), str(root / "store"),
+         str(out)],
+        stdout=logs[r], stderr=subprocess.STDOUT, cwd=ROOT)
+        for r in range(A2A_WORLD)]
+    deadline = time.monotonic() + 300
+    try:
+        for p in procs:
+            p.wait(timeout=max(0.1, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    for line in (root / "rank0.log").read_text().splitlines()[-20:]:
+        print(f"  rank 0: {line}")
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    for r in bad[:1]:
+        print((root / f"rank{r}.log").read_text()[-3000:])
+    check(not bad, f"ranks {bad} failed (exit codes "
+          f"{[procs[r].returncode for r in bad]})")
+    with np.load(out) as z:
+        res = {k: z[k] for k in z.files}
+    names = ("y", "x", "router", "w1", "w3", "w2")
+    for shape in A2A_MESHES:
+        for cf, dev, want in ((8.0, "cuda", "dense"),
+                              (1.0, "cuda", f"{shape}, 1.0, cpu")):
+            got = f"{shape}, {cf}, {dev}"
+            shares = {}
+            for n in names:
+                ref = res[f"{want}|{n}"]
+                gap = float(np.abs(res[f"{got}|{n}"] - ref).max())
+                peak = float(np.abs(ref).max())
+                shares[n] = gap / max(1.0, peak)
+                print(f"  {got} against {want}, {n}: {gap:.3e} (largest "
+                      f"{peak:.3e})")
+            worst = max(shares.values())
+            check(worst <= A2A_TOL, f"{got} against {want}: {worst:.3e} of "
+                  "max(1, the largest)")
+        drop = float(np.abs(res[f"{shape}, 1.0, cuda|y"]
+                            - res["dense|y"]).max())
+        print(f"  {shape}, capacity 1.0 against the dense oracle: "
+              f"{drop:.3e} (tokens drop)")
+        check(drop > 1e-2, "capacity 1.0 dropped nothing")
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def phase_sharded_restore(torch, np):
+    """Phase 58: one NCCL rank, ``make_host_mesh("cuda")`` (data 1, model
+    1): llsc-100m's train state (float32 masters and AdamW moments, on the
+    card) saved, then restored through ``restore_checkpoint(...,
+    shardings=param_shardings(mesh, template))``: every tensor leaf a
+    DTensor with its sharding's placements whose ``full_tensor()`` equals
+    the saved leaf.  The files go to build/ and are removed."""
+    import shutil
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh, mesh_shape
+    from repro_torch.launch.sharding import param_shardings
+    from repro_torch.train import checkpoint as ck
+    from repro_torch.train import train_step as ts
+
+    root = ROOT / "build" / "chip_smoke_sharded_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", rank=0, world_size=1)
+    try:
+        mesh = make_host_mesh(device="cuda")
+        check(mesh_shape(mesh) == {"data": 1, "model": 1},
+              f"host mesh {mesh_shape(mesh)}")
+        cfg = get_config("llsc-100m")
+        ocfg = ts.default_opt_cfg(cfg)
+        state = ts.init_train_state(cfg, torch.Generator().manual_seed(0),
+                                    ocfg, device="cuda")
+        t0 = time.perf_counter()
+        ck.save_checkpoint(str(root), 1, state)
+        save_s = time.perf_counter() - t0
+        template = ts.init_train_state_shape(cfg, ocfg)
+        shardings = param_shardings(mesh, template)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got, meta = ck.restore_checkpoint(str(root), 1, template, shardings,
+                                          device="cuda")
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        check(meta["step"] == 1 and got.opt.step == state.opt.step,
+              "the restored step differs")
+        pairs = [(flat(got.params), flat(state.params),
+                  flat(shardings.params))]
+        pairs += [(flat(getattr(got.opt, n)), flat(getattr(state.opt, n)),
+                   flat(getattr(shardings.opt, n))) for n in ("m", "v")]
+        n = 0
+        for got_t, want_t, sh in pairs:
+            for key, t in got_t.items():
+                check(isinstance(t, DTensor), f"{key} is not a DTensor")
+                check(tuple(t.placements) == sh[key].placements,
+                      f"{key}: placements {t.placements}")
+                check(torch.equal(t.full_tensor(), want_t[key]),
+                      f"{key}: full_tensor() differs from the saved leaf")
+                n += 1
+        n_bytes = sum(f.stat().st_size for f in root.rglob("*")
+                      if f.is_file())
+        print(f"  {n} leaves restored as DTensors on mesh "
+              f"{mesh_shape(mesh)} ({n_bytes:,} bytes saved in "
+              f"{save_s:.2f} s, restored in {restore_s:.2f} s), each "
+              "full_tensor() the saved leaf")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+@contextlib.contextmanager
+def phase_clock(seconds, phase, title, smi):
+    """Print phase ``phase``'s header and, after it, its seconds (kept in
+    ``seconds``)."""
+    print(f"=== {phase}. {title} [{smi}] ===")
+    t0 = time.perf_counter()
+    yield
+    seconds[phase] = time.perf_counter() - t0
+    print(f"  phase {phase}: {seconds[phase]:.1f} s")
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke: run from the root of a checkout (src/repro_torch "
@@ -3039,7 +3451,26 @@ def main() -> int:
                             registry, smi, by_path)
     phase_whisper_internvl2_checks(torch, np, model_lib, engine, perf)
 
-    print(f"=== 55. summary (whole run {time.perf_counter() - t_all:.1f} s) "
+    seconds = {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase_clock(seconds, 55, "serve llsc-100m, full width and depth, "
+                     "bf16, flash_kernel, sampled (temperature 0.8, top 40, "
+                     "seed 0) against greedy", smi):
+        by_path["serve llsc-100m, sampled"] = phase_sampling(
+            torch, np, model_lib, engine, counters, perf, registry, smi)
+    with phase_clock(seconds, 56, "banded=True against banded_local, "
+                     "reduced gemma3-1b, float32", smi):
+        phase_banded(torch, perf)
+    with phase_clock(seconds, 57, f"the all-to-all MoE on {A2A_WORLD} gloo "
+                     "ranks sharing the card, meshes (2, 4) and (1, 8)", smi):
+        phase_a2a(torch, np)
+    with phase_clock(seconds, 58, "restore_checkpoint with shardings, one "
+                     "NCCL rank, llsc-100m's train state", smi):
+        phase_sharded_restore(torch, np)
+    print(f"phases 55-58: {sum(seconds.values()):.1f} s")
+
+    print(f"=== 59. summary (whole run {time.perf_counter() - t_all:.1f} s) "
           "===")
     for path, counts in by_path.items():
         print(f"launches, {path}: {counts}")
@@ -3057,4 +3488,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--a2a-rank"] and (SRC / "repro_torch").is_dir():
+        sys.exit(a2a_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+                          sys.argv[5]))
     sys.exit(main())

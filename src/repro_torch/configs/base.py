@@ -162,6 +162,28 @@ class ModelConfig:
     def is_encdec(self) -> bool:
         return self.encoder is not None
 
+    @property
+    def uses_attention(self) -> bool:
+        return any(m.startswith("attn") for m in self.layer_pattern)
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """True if the arch can run long_500k (SSM/hybrid)."""
+        return self.family in ("ssm", "hybrid")
+
+    # -------------------------------------------------------------- counting
+    def param_count(self) -> int:
+        """Exact parameter count (matches init_params; used for 6ND)."""
+        from repro_torch.models.model import count_params_analytic
+
+        return count_params_analytic(self)
+
+    def active_param_count(self) -> int:
+        """Active (per-token) parameters, for MoE 6·N_active·D."""
+        from repro_torch.models.model import count_params_analytic
+
+        return count_params_analytic(self, active_only=True)
+
 
 # --------------------------------------------------------------------------
 # Registry
@@ -190,18 +212,7 @@ def list_archs() -> list:
 
 
 def _ensure_loaded():
-    # The port registers the architectures it serves; each slice adds its own.
-    import repro_torch.configs.gemma3_1b  # noqa: F401
-    import repro_torch.configs.granite_moe_1b  # noqa: F401
-    import repro_torch.configs.internvl2_2b  # noqa: F401
-    import repro_torch.configs.jamba15_large  # noqa: F401
-    import repro_torch.configs.llsc_100m  # noqa: F401
-    import repro_torch.configs.mamba2_370m  # noqa: F401
-    import repro_torch.configs.minicpm3_4b  # noqa: F401
-    import repro_torch.configs.phi3_medium_14b  # noqa: F401
-    import repro_torch.configs.qwen15_4b  # noqa: F401
-    import repro_torch.configs.qwen3_moe_30b  # noqa: F401
-    import repro_torch.configs.whisper_base  # noqa: F401
+    import repro_torch.configs.archs  # noqa: F401  (registers every arch)
 
 
 # --------------------------------------------------------------------------

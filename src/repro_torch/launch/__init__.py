@@ -1,1 +1,16 @@
-"""The port's launchers (counterpart of ``repro.launch``)."""
+"""Launchers and distribution (counterpart of ``repro.launch``): mesh,
+sharding rules, fault tolerance.  The dry-run is not ported yet."""
+from repro_torch.launch.fault import (CrashInjector, StragglerDetector,
+                                      resume_latest)
+from repro_torch.launch.mesh import (axis_size, fsdp_axes, make_host_mesh,
+                                     make_production_mesh, tp_axis)
+from repro_torch.launch.sharding import (ShardingOptions, batch_shardings,
+                                         cache_shardings, hint_context,
+                                         param_shardings)
+
+__all__ = [
+    "CrashInjector", "StragglerDetector", "resume_latest", "axis_size",
+    "fsdp_axes", "make_host_mesh", "make_production_mesh", "tp_axis",
+    "ShardingOptions", "batch_shardings", "cache_shardings", "hint_context",
+    "param_shardings",
+]

@@ -90,9 +90,11 @@ class CrashInjector:
             raise RuntimeError(f"injected node failure at step {step}")
 
 
-def resume_latest(ckpt_dir: str, state_template, device="cuda"):
+def resume_latest(ckpt_dir: str, state_template, shardings=None,
+                  device="cuda"):
     """(state on ``device``, its step) from the newest complete checkpoint
-    in ``ckpt_dir``, or (None, 0) when there is none."""
+    in ``ckpt_dir``, or (None, 0) when there is none; ``shardings`` as
+    ``restore_checkpoint`` takes them."""
     # imported here: repro_torch.train imports this module
     from repro_torch.train import checkpoint as ckpt
 
@@ -100,5 +102,5 @@ def resume_latest(ckpt_dir: str, state_template, device="cuda"):
     if step is None:
         return None, 0
     state, meta = ckpt.restore_checkpoint(ckpt_dir, step, state_template,
-                                          device)
+                                          shardings, device)
     return state, int(meta["step"])

@@ -139,9 +139,12 @@ def _theta(cfg, local: bool) -> float:
         else cfg.rope_theta
 
 
-def gqa_attention(params, x, cfg, *, local: bool, positions, banded=False):
+def gqa_attention(params, x, cfg, *, local: bool, positions, chunk=None,
+                  banded=False):
     """Full-sequence (prefill) causal GQA attention, global or (``local``)
-    sliding-window.  x [B,S,D] -> ([B,S,D], (k, v))."""
+    sliding-window.  x [B,S,D] -> ([B,S,D], (k, v)).  Where flash does not
+    take it, ``chunked_attention`` runs in query chunks of ``chunk or
+    cfg.attn_chunk``, banded or not, as the reference's."""
     q, k, v = gqa_project_qkv(params, x, cfg.n_heads, cfg.n_kv_heads,
                               cfg.d_head)
     theta = _theta(cfg, local)
@@ -153,7 +156,7 @@ def gqa_attention(params, x, cfg, *, local: bool, positions, banded=False):
     else:
         out = chunked_attention(
             q, k, v, causal=True, window=cfg.attn_window if local else None,
-            softcap=cfg.attn_logit_softcap, chunk=cfg.attn_chunk,
+            softcap=cfg.attn_logit_softcap, chunk=chunk or cfg.attn_chunk,
             banded=banded)
     return out.reshape(B, S, -1) @ params["wo"], (k, v)
 

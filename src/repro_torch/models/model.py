@@ -4,15 +4,38 @@ from __future__ import annotations
 
 import math
 
+import torch
+
 from repro_torch.models import transformer
 
 init_params = transformer.init_params
+
+
+def init_params_shape(cfg, dtype=None):
+    """The parameters as tensors on the ``meta`` device: shapes and dtypes
+    (each leaf's, or ``dtype`` but for float32 leaves, as ``init_params``)
+    and no memory, so even jamba-1.5-large-398b costs nothing (the
+    reference's ``init_params_shape``, for the sharding rules and the
+    dry-run)."""
+    return transformer._tree_map(
+        lambda leaf: torch.empty(leaf.shape, device="meta",
+                                 dtype=transformer.leaf_dtype(leaf, cfg,
+                                                              dtype)),
+        transformer.param_spec(cfg))
+
+
 forward_hidden = transformer.forward_hidden
 chunked_ce_loss = transformer.chunked_ce_loss
 lm_loss = transformer.lm_loss
 prefill = transformer.prefill
 decode_step = transformer.decode_step
 init_cache = transformer.init_cache
+
+
+def cache_struct(cfg, B: int, T: int):
+    """A decode cache for B rows of capacity T as tensors on the ``meta``
+    device (the reference's ``cache_struct``)."""
+    return transformer.init_cache(cfg, B, T, device="meta")
 
 
 def count_params(cfg) -> int:

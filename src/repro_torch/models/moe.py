@@ -27,9 +27,12 @@ float32 the two differ by the order of k additions; in bfloat16 by that and
 the reference's rounding after each add (``tests/test_torch_moe.py`` holds
 them within the kernels' bf16 tolerance, 2e-2).
 
-The ``moe_a2a`` PerfFlag acts only through a device mesh in the reference
-(``moe_ffn``'s all-to-all branch); on one device it changes nothing, and
-the port has no mesh yet.
+Under the ``moe_a2a`` PerfFlag, with a mesh in the sharding-hint context
+(``launch.sharding.hint_context``) on which ``a2a_applicable`` holds,
+``moe_ffn`` runs the expert-parallel all-to-all of ``models/moe_a2a.py``
+instead, as the reference's.  The dispatch buffers take the
+``"moe_dispatch"`` hint and the combined rows ``"moe_out"``; on one
+device, and for plain tensors, neither does anything.
 """
 from __future__ import annotations
 
@@ -39,6 +42,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import Leaf
+from repro_torch.models.perf_flags import current as _perf
+from repro_torch.models.sharding_hints import current_hints, shard_hint
 
 F32 = torch.float32
 
@@ -145,6 +150,16 @@ def moe_ffn(params, x, spec, act: str = "swiglu", n_groups=None):
     """x [B, S, d] -> [B, S, d] in x's dtype.  The router logits are fp32
     (a bf16 router, as training's ``cast_params`` leaves it, is lifted
     back); the experts run in x's dtype."""
+    if _perf().moe_a2a:
+        from repro_torch.launch.mesh import fsdp_axes
+        from repro_torch.models.moe_a2a import a2a_applicable, moe_ffn_a2a
+
+        state = current_hints()
+        mesh = state[0] if state else None
+        if mesh is not None and a2a_applicable(x.shape, spec, mesh):
+            return moe_ffn_a2a(params, x, spec, act, mesh,
+                               fsdp_axes=fsdp_axes(mesh))
+
     B, S, d = x.shape
     G = n_groups or _pick_groups(B, S)
     T = (B * S) // G
@@ -155,8 +170,10 @@ def moe_ffn(params, x, spec, act: str = "swiglu", n_groups=None):
     weights, idx = _route(logits, spec)
     e_flat, w_flat = idx.reshape(G, T * k), weights.reshape(G, T * k)
     pos = _positions(e_flat, E)
-    out_buf = _experts(params, _dispatch(xg, e_flat, pos, E, C), act)
-    return _combine(out_buf, e_flat, pos, w_flat, k).reshape(B, S, d)
+    buf = shard_hint(_dispatch(xg, e_flat, pos, E, C), "moe_dispatch")
+    out_buf = shard_hint(_experts(params, buf, act), "moe_dispatch")
+    y = shard_hint(_combine(out_buf, e_flat, pos, w_flat, k), "moe_out")
+    return y.reshape(B, S, d)
 
 
 def moe_ffn_dense_reference(params, x, spec, act: str = "swiglu"):

@@ -9,8 +9,12 @@ through the CUDA flash kernel; ``banded_local``, which gives a local
 other than ``"none"`` act as ``"dots"``; and ``bf16_grads``, which rounds
 the cotangent of every block's output to bfloat16 in the backward
 (``models/transformer.py::_BF16Cotangent``), as the reference does.  The
-others act only through a device mesh in the reference, which the port
-does not have yet.  Defaults are all off, as in the reference.
+others act through a device mesh, as in the reference: ``moe_fsdp_tp``,
+``decode_cache_seq_shard`` and ``sequence_parallel`` change the specs of
+``launch/sharding.py``; ``loss_weight_gather`` gives the loss head's
+weight its sharding hint; ``moe_a2a`` routes ``moe_ffn`` to the
+all-to-all of ``models/moe_a2a.py`` when a mesh is in the hint context.
+Defaults are all off, as in the reference.
 """
 from __future__ import annotations
 

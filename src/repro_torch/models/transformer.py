@@ -74,6 +74,8 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import Leaf, embed, mlp, rmsnorm, zeros
 from repro_torch.models.perf_flags import current as _perf
 from repro_torch.models.perf_flags import perf_flags
+from repro_torch.models.sharding_hints import (current_hints, hint_context,
+                                               shard_hint)
 
 F32 = torch.float32
 
@@ -335,18 +337,19 @@ def _enc_kv_heads(cfg):
     return enc.n_kv_heads, cfg.d_model // enc.n_heads
 
 
-def apply_block_full(bp, x, cfg, kind, mlp_kind, positions, enc_out=None,
-                     *, want_aux=False):
+def apply_block_full(bp, x, cfg, mixer_kind, mlp_kind, positions,
+                     enc_out=None, *, banded=False, want_aux=False):
     """Returns (x, cache entry of the layer in the cache's dtypes, aux):
     aux as ``_apply_mlp`` gives it.  A local layer takes the banded path
-    under the ``banded_local`` PerfFlag, as the reference's.  In an
-    encoder-decoder model ``ln_x`` and cross attention over ``enc_out``
-    follow the self-attention, and the entry holds their ``xk``, ``xv``.
-    Under the ``bf16_grads`` PerfFlag the block's output goes through
+    under ``banded`` or the ``banded_local`` PerfFlag, as the reference's.
+    In an encoder-decoder model ``ln_x`` and cross attention over
+    ``enc_out`` follow the self-attention, and the entry holds their
+    ``xk``, ``xv``.  The output takes the ``"activation"`` sharding hint
+    and, under the ``bf16_grads`` PerfFlag, goes through
     ``_BF16Cotangent``."""
     h = rmsnorm(bp["ln1"], x, cfg.norm_eps)
     dt = model_dtype(cfg)
-    if kind == "ssm":
+    if mixer_kind == "ssm":
         y, (conv_tail, state) = ssm_mod.mamba2_forward(bp["mixer"], h, cfg)
         cache = {"conv": conv_tail.to(dt), "ssd": state.to(F32)}
     elif cfg.mla is not None:
@@ -354,10 +357,10 @@ def apply_block_full(bp, x, cfg, kind, mlp_kind, positions, enc_out=None,
                                                  positions=positions)
         cache = {"ckv": ckv.to(dt), "krope": krope.to(dt)}
     else:
-        local = kind == "attn_local"
+        local = mixer_kind == "attn_local"
         y, (k, v) = attn_mod.gqa_attention(
             bp["mixer"], h, cfg, local=local, positions=positions,
-            banded=local and _perf().banded_local)
+            banded=banded or (_perf().banded_local and local))
         cache = {"k": k.to(dt), "v": v.to(dt)}
     x = x + y
     if cfg.is_encdec:
@@ -367,14 +370,15 @@ def apply_block_full(bp, x, cfg, kind, mlp_kind, positions, enc_out=None,
         x = x + attn_mod.cross_attention(bp["xattn"], h, cache["xk"],
                                          cache["xv"], cfg)
     x, aux = _apply_mlp(bp, x, cfg, mlp_kind, want_aux=want_aux)
+    x = shard_hint(x, "activation")
     if _perf().bf16_grads:
         x = _BF16Cotangent.apply(x)
     return x, cache, aux
 
 
-def apply_block_decode(bp, x, cfg, kind, mlp_kind, cache, cache_len):
+def apply_block_decode(bp, x, cfg, mixer_kind, mlp_kind, cache, cache_len):
     h = rmsnorm(bp["ln1"], x, cfg.norm_eps)
-    if kind == "ssm":
+    if mixer_kind == "ssm":
         y, _, _ = ssm_mod.mamba2_decode(bp["mixer"], h, cfg, cache["conv"],
                                         cache["ssd"])
     elif cfg.mla is not None:
@@ -383,7 +387,7 @@ def apply_block_decode(bp, x, cfg, kind, mlp_kind, cache, cache_len):
     else:
         y, _, _ = attn_mod.gqa_decode(bp["mixer"], h, cfg, cache["k"],
                                       cache["v"], cache_len,
-                                      local=kind == "attn_local")
+                                      local=mixer_kind == "attn_local")
     x = x + y
     if cfg.is_encdec:
         h = rmsnorm(bp["ln_x"], x, cfg.norm_eps)
@@ -401,23 +405,23 @@ def input_embeddings(params, cfg, tokens, frontend_embeds=None):
     return x
 
 
-def encode(params, cfg, frames):
-    """frames [B,S_enc,d] (the audio stub's output) -> the encoder's
+def encode(params, cfg, enc_embeds):
+    """enc_embeds [B,S_enc,d] (the audio stub's frames) -> the encoder's
     output [B,S_enc,d] after ``enc_norm``, as the reference's ``encode``:
     each layer ln1, attention without a causal mask and without positions
     (plain chunked attention, as the reference's jnp, over heads of d //
     enc.n_heads), ln2 and the tanh-GELU MLP.  Raises ``TypeError`` for
     frames in another dtype than the encoder's weights."""
-    if frames is None:
+    if enc_embeds is None:
         raise ValueError(f"{cfg.name}: an encoder-decoder model needs its "
                          "frames (frontend_embeds)")
     enc = cfg.encoder
     w = params["enc_blocks"]["mixer"]["wq"]
-    if frames.dtype != w.dtype:
-        raise TypeError(f"{cfg.name}: frames in {frames.dtype}, the "
+    if enc_embeds.dtype != w.dtype:
+        raise TypeError(f"{cfg.name}: frames in {enc_embeds.dtype}, the "
                         f"encoder's weights in {w.dtype}")
     Hk, d_head = _enc_kv_heads(cfg)
-    x = frames
+    x = enc_embeds
     for i in range(enc.n_layers):
         bp = _layer(params["enc_blocks"], i)
         h = rmsnorm(bp["ln1"], x, cfg.norm_eps)
@@ -452,6 +456,7 @@ def _remat(fn, cfg):
     if cfg.remat == "none":
         return fn
     flags = _perf()
+    mesh, hints = current_hints() or (None, None)
     kw = {}
     if cfg.remat == "dots" or flags.remat_dots:
         kw["context_fn"] = functools.partial(
@@ -459,9 +464,10 @@ def _remat(fn, cfg):
 
     def under_flags(*args):
         # The recompute runs in the backward, on the autograd engine's
-        # device thread for CUDA tensors, where this thread's PerfFlags are
-        # not set: it must take the forward's routes (flash or not).
-        with perf_flags(flags):
+        # device thread for CUDA tensors, where this thread's PerfFlags and
+        # sharding hints are not set: it must take the forward's routes
+        # (flash or not) and layouts.
+        with perf_flags(flags), hint_context(hints, mesh):
             return fn(*args)
 
     return functools.partial(checkpoint, under_flags, use_reentrant=False,
@@ -475,20 +481,23 @@ def _records(params) -> bool:
 
 
 def forward_hidden(params, cfg, tokens, frontend_embeds=None, *,
-                   want_cache=False, want_aux=False):
+                   want_cache=False, banded=False, want_aux=False):
     """tokens [B,S] -> (hidden [B,S',d] after the final norm, caches or
     None), or with ``want_aux`` (hidden, caches, aux [2]): the MoE blocks'
     (load_balance, z) router losses summed and divided by ``cfg.n_layers``,
     every layer counted, as the reference's.  ``frontend_embeds`` are the
     encoder's frames of an encoder-decoder model, or the P patches a
-    ``patch_stub`` model puts before the tokens (S' = P + S).  Each period
-    of the stacked blocks goes through ``_remat`` when autograd records,
-    the encoder's output one of its inputs and its share of aux one of its
+    ``patch_stub`` model puts before the tokens (S' = P + S).  ``banded``
+    gives every local layer the banded path (``apply_block_full``).  The
+    embeddings take the ``"activation"`` sharding hint.  Each period of
+    the stacked blocks goes through ``_remat`` when autograd records, the
+    encoder's output one of its inputs and its share of aux one of its
     outputs."""
     check_supported(cfg)
     enc_out = encode(params, cfg, frontend_embeds) if cfg.is_encdec \
         else None
-    x = input_embeddings(params, cfg, tokens, frontend_embeds)
+    x = shard_hint(input_embeddings(params, cfg, tokens, frontend_embeds),
+                   "activation")
     positions = torch.arange(x.shape[1], device=x.device)
 
     def period_fn(x, aux, enc_out, pparams):
@@ -496,7 +505,8 @@ def forward_hidden(params, cfg, tokens, frontend_embeds=None, *,
         for p in range(cfg.period):
             x, caches[str(p)], a = apply_block_full(
                 pparams[str(p)], x, cfg, cfg.layer_pattern[p],
-                cfg.mlp_pattern[p], positions, enc_out, want_aux=want_aux)
+                cfg.mlp_pattern[p], positions, enc_out, banded=banded,
+                want_aux=want_aux)
             if a is not None:
                 aux = aux + a
         return x, aux, caches
@@ -515,7 +525,8 @@ def forward_hidden(params, cfg, tokens, frontend_embeds=None, *,
     for r in range(cfg.n_remainder):
         x, rem[str(r)], a = apply_block_full(
             params["rem"][str(r)], x, cfg, cfg.layer_pattern[r],
-            cfg.mlp_pattern[r], positions, enc_out, want_aux=want_aux)
+            cfg.mlp_pattern[r], positions, enc_out, banded=banded,
+            want_aux=want_aux)
         if a is not None:
             aux = aux + a
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
@@ -537,19 +548,30 @@ def logits_last(params, cfg, hidden):
     return _logits(params, cfg, hidden[:, -1])
 
 
-def _logits(params, cfg, h):
-    """h [..., d] -> [..., V] fp32.  A bf16 product is exact in fp32, so
-    upcasting the inputs sums the bf16 products in fp32."""
-    h = h.to(F32)
+def _head(params, cfg):
+    """(the head's weight, whether it is the tied embedding [V,d])."""
     if cfg.tie_embeddings:
-        return h @ params["embed"].to(F32).t()
-    return h @ params["lm_head"].to(F32)
+        return params["embed"], True
+    return params["lm_head"], False
 
 
-def _chunk_loss(params, cfg, hc, lc):
+def _logits(params, cfg, h):
+    return _head_logits(*_head(params, cfg), h)
+
+
+def _head_logits(w, tied, h):
+    """h [..., d] -> [..., V] fp32 through the head ``w``.  A bf16 product
+    is exact in fp32, so upcasting the inputs sums the bf16 products in
+    fp32."""
+    w = w.to(F32)
+    return h.to(F32) @ (w.t() if tied else w)
+
+
+def _chunk_loss(w, tied, hc, lc):
     """(sum of logsumexp - gold over labels >= 0, their count) of one
-    chunk; hc [B,C,d], lc [B,C]."""
-    logits = _logits(params, cfg, hc)
+    chunk; hc [B,C,d], lc [B,C].  The logits take the ``"logits"``
+    sharding hint."""
+    logits = shard_hint(_head_logits(w, tied, hc), "logits")
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, lc.clamp(min=0)[..., None])[..., 0]
     valid = lc >= 0
@@ -565,6 +587,8 @@ def chunked_ce_loss(params, cfg, hidden, labels):
     taken in chunks of that length; each chunk's logits are recomputed in
     the backward (``torch.utils.checkpoint``, as the reference's
     ``jax.checkpoint``), so one chunk's [B,C,V] logits live at a time.
+    Under the ``loss_weight_gather`` PerfFlag the head's weight takes the
+    ``"loss_head"`` (``"loss_head_tied"``) sharding hint first.
     """
     B, S, _ = hidden.shape
     C = min(cfg.loss_chunk, S)
@@ -572,27 +596,31 @@ def chunked_ce_loss(params, cfg, hidden, labels):
     if pad:
         hidden = torch.nn.functional.pad(hidden, (0, 0, 0, pad))
         labels = torch.nn.functional.pad(labels, (0, pad), value=-1)
+    w, tied = _head(params, cfg)
+    if _perf().loss_weight_gather:
+        w = shard_hint(w, "loss_head_tied" if tied else "loss_head")
     loss_sum = torch.zeros((), dtype=F32, device=hidden.device)
     count = torch.zeros((), dtype=torch.int64, device=hidden.device)
     for start in range(0, S + pad, C):
         part, n = checkpoint(
-            _chunk_loss, params, cfg, hidden[:, start:start + C],
+            _chunk_loss, w, tied, hidden[:, start:start + C],
             labels[:, start:start + C], use_reentrant=False)
         loss_sum, count = loss_sum + part, count + n
     return loss_sum / count.clamp(min=1)
 
 
 def lm_loss(params, cfg, tokens, labels, frontend_embeds=None, *,
-            aux_weights=None):
+            banded=False, aux_weights=None):
     """Mean next-token CE of ``tokens`` [B,S] against ``labels`` [B,S]
     (-1 = ignore), the reference's ``lm_loss``; ``frontend_embeds`` as
     ``forward_hidden`` takes them, a ``patch_stub`` model's P patches
-    padding the labels with P entries of -1 in front.
-    ``aux_weights=(lb_w, z_w)`` adds lb_w * load_balance + z_w * z of
-    ``forward_hidden(want_aux=)``; ignored for a config without MoE."""
+    padding the labels with P entries of -1 in front; ``banded`` as
+    ``forward_hidden`` takes it.  ``aux_weights=(lb_w, z_w)`` adds lb_w *
+    load_balance + z_w * z of ``forward_hidden(want_aux=)``; ignored for a
+    config without MoE."""
     want_aux = aux_weights is not None and cfg.moe is not None
     out = forward_hidden(params, cfg, tokens, frontend_embeds,
-                         want_aux=want_aux)
+                         banded=banded, want_aux=want_aux)
     if cfg.frontend == "patch_stub" and frontend_embeds is not None:
         labels = torch.nn.functional.pad(
             labels, (frontend_embeds.shape[1], 0), value=-1)

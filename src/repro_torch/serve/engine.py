@@ -6,7 +6,15 @@ slot has its own cache length; finished slots are refilled from the queue
 between steps).  Each decode step publishes its achieved utilization to the
 LLload job registry, and the :class:`OverloadController` watches the duty
 cycle to propose the next slot count 1 -> 2 -> 4 -> 8, as LLSC steps
-tasks per GPU.  Decoding is greedy.
+tasks per GPU.  Decoding is greedy by default; with ``greedy=False`` each
+token is drawn from the softmax of the logits over ``temperature``,
+cut to the ``top_k`` largest where ``top_k > 0``, by the Gumbel-max rule
+(jax.random.categorical's) with a ``torch.Generator`` on the engine's
+device seeded from (``seed``, step) as ``train/data.py`` seeds its draws:
+the step is 10,000,000 + the request id for a prefill's token and the
+decode step's count for a decode step, as the reference's.  jax.random's
+numbers cannot be reproduced, so a sampled token is the reference's in
+distribution, not in value.
 
 Requests are tokens only, as the reference's: a ``patch_stub`` model
 (internvl2) is served as a text-only LM, and an encoder-decoder model
@@ -25,10 +33,14 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core.overload import DeviceObservation, OverloadController
+from repro_torch.core.overload import (DeviceObservation, OverloadController,
+                                       OverloadDecision)
 from repro_torch.models import model as model_lib
 from repro_torch.models.transformer import leaves
 from repro_torch.monitor import device_figures, publish_step_utilization
+from repro_torch.train.data import _generator
+
+F32 = torch.float32
 
 # cache leaves with a time axis (attention's k and v, MLA's latent ckv and
 # rope key krope); the others (conv, ssd) are per-row states
@@ -55,6 +67,10 @@ class Completion:
 class EngineConfig:
     slots: int = 4                # concurrent decode streams (NPPN analog)
     max_seq_len: int = 256
+    greedy: bool = True           # False: temperature/top-k sampling
+    temperature: float = 1.0
+    top_k: int = 0                # 0 = full distribution
+    seed: int = 0
     job_name: str = "serve"
     monitor: bool = True
     device: str = "cuda"
@@ -97,10 +113,26 @@ class ServeEngine:
         req.submitted_s = time.perf_counter()
         self.queue.append(req)
 
-    @staticmethod
-    def _select(logits) -> torch.Tensor:
-        """Greedy: the first index of the largest logit. logits [B, V]."""
-        return torch.argmax(logits, dim=-1)
+    def sample_generator(self, step: int) -> torch.Generator:
+        """The generator of ``step``'s draw, on the engine's device."""
+        return _generator(self.ecfg.seed, step, self.device)
+
+    def _select(self, logits, step: int) -> torch.Tensor:
+        """Greedy argmax or temperature/top-k sampling. logits [B, V]."""
+        ecfg = self.ecfg
+        if ecfg.greedy:
+            return torch.argmax(logits, dim=-1)
+        scaled = logits.to(F32) / max(ecfg.temperature, 1e-6)
+        idx = None
+        if ecfg.top_k > 0:
+            scaled, idx = torch.topk(scaled, ecfg.top_k, dim=-1)
+        u = torch.rand(scaled.shape, dtype=F32, device=scaled.device,
+                       generator=self.sample_generator(step))
+        gumbel = -torch.log(-torch.log(u.clamp_(min=torch.finfo(F32).tiny)))
+        choice = torch.argmax(scaled + gumbel, dim=-1)
+        if idx is None:
+            return choice
+        return torch.gather(idx, 1, choice[:, None])[:, 0]
 
     def _mem_used_gb(self, caches) -> float:
         if self.device.type == "cuda":
@@ -123,7 +155,7 @@ class ServeEngine:
         tokens = torch.as_tensor(np.asarray(req.prompt, np.int64),
                                  device=self.device)[None]
         logits, new = model_lib.prefill(self.params, self.cfg, tokens)
-        first_tok = int(self._select(logits)[0])
+        first_tok = int(self._select(logits, 10_000_000 + req.request_id)[0])
         S = tokens.shape[1]
         for part in ("blocks", "rem"):
             b_ax = 1 if part == "blocks" else 0
@@ -182,7 +214,7 @@ class ServeEngine:
                 self.params, cfg,
                 torch.as_tensor(last[:, None], device=self.device), caches,
                 torch.as_tensor(np.minimum(lens, T - 1), device=self.device))
-            nxt = self._select(logits).cpu().numpy()   # waits for the step
+            nxt = self._select(logits, steps).cpu().numpy()  # waits for it
             dt = time.perf_counter() - t0
             self.decode_s.append(dt)
             steps += 1
@@ -223,3 +255,6 @@ class ServeEngine:
             "decision": self.controller.decide(ecfg.slots),
         }
 
+
+def overload_decision(engine: ServeEngine) -> OverloadDecision:
+    return engine.controller.decide(engine.ecfg.slots)

@@ -145,8 +145,12 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 
 def restore_checkpoint(ckpt_dir: str, step: int, state_template: Any,
-                       device="cuda"):
-    """Restore into the structure of ``state_template`` on ``device``.
+                       shardings=None, device="cuda"):
+    """Restore into the structure of ``state_template`` on ``device``;
+    optionally re-shard with a matching tree of
+    ``launch.sharding.NamedSharding`` (elastic re-meshing): each tensor
+    leaf then comes back as a ``DTensor`` placed on its sharding's
+    ``DeviceMesh`` by ``distribute_tensor``.
 
     Each tensor of the template gives its leaf's shape and dtype only, so
     the template may live on the ``meta`` device (``init_train_state_shape``);
@@ -177,4 +181,22 @@ def restore_checkpoint(ckpt_dir: str, step: int, state_template: Any,
             return torch.from_numpy(arr).to(device=dev, dtype=node.dtype)
         return type(node)(arr)
 
-    return build(state_template, ""), meta
+    state = build(state_template, "")
+    if shardings is not None:
+        state = _place(state, shardings)
+    return state, meta
+
+
+def _place(node, sharding):
+    """``node`` with each tensor leaf distributed as its ``sharding`` says
+    (the matching leaf of a tree laid out as ``node``)."""
+    if _is_namedtuple(node):
+        return type(node)(*(_place(getattr(node, f), getattr(sharding, f))
+                            for f in node._fields))
+    if isinstance(node, dict):
+        return {k: _place(v, sharding[k]) for k, v in node.items()}
+    if not isinstance(node, torch.Tensor):
+        return node
+    from torch.distributed.tensor import distribute_tensor
+
+    return distribute_tensor(node, sharding.mesh, sharding.placements)

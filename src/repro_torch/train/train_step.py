@@ -50,16 +50,17 @@ def cast_params(params, dtype):
         lambda p: p.to(dt) if p.dtype == F32 and p.dim() > 1 else p, params)
 
 
-def loss_and_grads(params, cfg, batch, *, aux_weights=None):
+def loss_and_grads(params, cfg, batch, *, banded=False, aux_weights=None):
     """(loss, gradients with respect to the float32 masters ``params``) of
     ``lm_loss`` (with the batch's ``frontend`` embeddings where it has
-    them, and the MoE auxiliary losses at ``aux_weights``) on the masters
-    cast by ``cast_params``; the gradients are float32 and laid out as
-    ``params``."""
+    them, ``banded``, and the MoE auxiliary losses at ``aux_weights``) on
+    the masters cast by ``cast_params``; the gradients are float32 and
+    laid out as ``params``."""
     masters = _tree_map(lambda p: p.detach().requires_grad_(), params)
     loss = model_lib.lm_loss(cast_params(masters, cfg.dtype), cfg,
                              batch["tokens"], batch["labels"],
-                             batch.get("frontend"), aux_weights=aux_weights)
+                             batch.get("frontend"), banded=banded,
+                             aux_weights=aux_weights)
     # a leaf the forward does not read (ln2 of a block without FFN) gets a
     # zero gradient, as jax.grad gives it
     grads = iter(torch.autograd.grad(loss, list(leaves(masters)),
@@ -67,16 +68,18 @@ def loss_and_grads(params, cfg, batch, *, aux_weights=None):
     return loss.detach(), _tree_map(lambda _: next(grads), params)
 
 
-def make_train_step(cfg, opt_cfg: AdamWConfig, *, aux_weights=None):
+def make_train_step(cfg, opt_cfg: AdamWConfig, *, banded: bool = False,
+                    aux_weights=None):
     """Returns ``train_step(state, batch) -> (state, metrics)``; ``batch``
     holds ``tokens`` and ``labels`` [B,S] on the state's device, and the
     metrics are ``loss``, ``grad_norm`` (0-d tensors) and ``lr``.  A model
     with a stub frontend takes its embeddings as the batch's ``frontend``.
+    ``banded`` gives local layers the banded attention path (``lm_loss``).
     ``aux_weights=(lb, z)`` enables the MoE load-balance / router-z
     auxiliary losses (ST-MoE defaults: (0.01, 1e-3))."""
 
     def train_step(state: TrainState, batch: dict):
-        loss, grads = loss_and_grads(state.params, cfg, batch,
+        loss, grads = loss_and_grads(state.params, cfg, batch, banded=banded,
                                      aux_weights=aux_weights)
         new_params, new_opt, metrics = adamw_update(
             state.params, grads, state.opt, opt_cfg)

@@ -107,7 +107,7 @@ class Trainer:
         if tc.ckpt_dir and resume:
             state, start_step = resume_latest(
                 tc.ckpt_dir, init_train_state_shape(self.cfg, self.opt_cfg),
-                self.device)
+                device=self.device)
         if state is None:
             state = self._init_state()
         losses = []
