@@ -124,7 +124,7 @@ It imports nothing of JAX or of the JAX package.  Phases:
     1e-4, the same tokens), with every layer's top-k expert ids the same on
     both sides (flips counted; the gap of the k-th and (k+1)-th router
     logit printed at each);
-21. the first 4 of 19's requests (one wave through the 4 slots), cut to 8
+21. the first 4 of 19's requests (one wave through the 4 slots), cut to 4
     new tokens each, under ``torch.profiler``, as 6, with the device time
     of the MoE's parts:
     routing, the sort, the scatter, the expert products and the combine
@@ -187,7 +187,7 @@ It imports nothing of JAX or of the JAX package.  Phases:
     one decode step's device time against the HBM time of its weights;
 37. the same for phi3-medium-14b (40 query and 10 KV heads of 128;
     14,659,507,200 parameters, 29.3 GB in bf16);
-38. a serve of the first 4 of 37's requests, cut to 8 new tokens each,
+38. a serve of the first 4 of 37's requests, cut to 4 new tokens each,
     under ``torch.profiler``, as 6, with attention's prefill and decode
     and the FFN under
     ``record_function`` labels;
@@ -273,9 +273,17 @@ It imports nothing of JAX or of the JAX package.  Phases:
     printed (gloo with CUDA tensors: through the host);
 58. one NCCL rank, ``make_host_mesh("cuda")``: llsc-100m's train state
     saved and restored with ``shardings=param_shardings(...)``, every
-    leaf a DTensor whose ``full_tensor()`` is the saved leaf; each of
-    55-58 prints its seconds;
-59. the launches of each main path (the serves of 4, 7, 19, 25, 30, 36,
+    leaf a DTensor whose ``full_tensor()`` is the saved leaf;
+59. the port's dry-run (``launch/dryrun.py probe_costs``) of phase 11's
+    step, llsc-100m at 8 x 256 on a 1 x 1 mesh over a one-rank ``"fake"``
+    group, in a subprocess (``chip_smoke.py --dry-run-probe``; 30 s is
+    its budget): its FLOPs against 6 N D; its compute and memory terms at most
+    phase 11's median step; its argument bytes exactly those of a
+    ``TrainState`` and a batch built on the card; its temp + argument
+    bytes against phase 11's peak, with the ratio; the roofline verdict
+    of the job's published duty, step and HBM; each of 55-59 prints its
+    seconds;
+60. the launches of each main path (the serves of 4, 7, 19, 25, 30, 36,
     37, 39, 46, 47, 48 and 55's sampled serve, the train runs of 11, 14,
     22, 32, 40, 42, 49 and 51), one ``{"kernels": [...]}`` line (each
     kernel's launches summed over those paths), the nvidia-smi line, and
@@ -1339,15 +1347,16 @@ def report_parts(prof, parts, total_ms):
 
 
 # New tokens a request of a labelled profile (phases 21 and 38): reading a
-# trace of the host's operators takes about 1.5 s a decode step.
-PROFILE_NEW = 8
+# trace of the host's operators takes about 1.5 s a decode step.  4, not
+# 8, since phase 59 came (the script's time limit).
+PROFILE_NEW = 4
 
 
 def profile_first_wave(torch, cfg, params, engine, counters, perf, serve,
                        kernels, parts):
     """Phases 21 and 38: the first 4 of a serve's 8 requests (one wave
     through the 4 slots), each cut to ``PROFILE_NEW`` new tokens (a prefill
-    and 7 decode steps), untraced, then under torch.profiler with the
+    and 3 decode steps), untraced, then under torch.profiler with the
     functions of ``parts`` labelled, reported as ``report_profile`` does:
     labels need the host's operators in the trace, and a trace of both
     takes minutes to read at some 3,000 device activities a pass."""
@@ -1604,7 +1613,7 @@ def step_launches(cfg):
 
 
 def phase_train(torch, np, counters, registry, perf, smi, arch, flags=(),
-                *, phase, layers=None):
+                *, phase, layers=None, stats=None):
     """Phases 11-12 (llsc-100m), 14-15 (mamba2-370m), 22-23
     (granite-moe-1b-a400m), 32-33 (gemma3-1b), 40-41 (qwen1.5-4b), 42-43
     (minicpm3-4b), 49-50 (whisper-base) and 51-52 (internvl2-2b):
@@ -1618,7 +1627,9 @@ def phase_train(torch, np, counters, registry, perf, smi, arch, flags=(),
     the model FLOPs of the active parameters (``count_params_analytic``).
     Steps 3-22 give the median step time and tokens/s (the first 2 are
     warm-up); the host-side init of the masters is timed apart.  Then one
-    step under the profiler.  Returns the launch counts."""
+    step under the profiler.  Returns the launch counts; ``stats``, where
+    given, gets the median step (``median_s``), the peak memory allocated
+    (``peak_bytes``) and the job's registry entry (``published``)."""
     from repro_torch.launch import train as launch_train
     from repro_torch.models import model as model_lib
     from repro_torch.train import trainer as trainer_mod
@@ -1684,6 +1695,9 @@ def phase_train(torch, np, counters, registry, perf, smi, arch, flags=(),
     times = np.array([h["time_s"] for h in trainer.history[2:]])
     med = float(np.median(times))
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    if stats is not None:
+        stats.update(median_s=med, published=dataclasses.replace(pub),
+                     peak_bytes=torch.cuda.max_memory_allocated())
     print(f"losses {losses[0]:.4f} -> {losses[-1]:.4f}, all finite")
     print(f"[{smi}] train {arch} ({cfg.n_layers} layers) bf16, {batch} x "
           f"{seq} tokens a step: "
@@ -3224,6 +3238,129 @@ def phase_sharded_restore(torch, np):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# The dry-run's train shape: phase 11's batch, passed to probe_costs
+# directly (it is not one of the assigned SHAPES).
+DRY_RUN_SHAPE = ("smoke_train", 256, 8, "train")
+
+
+def dry_run_probe(out) -> int:
+    """``chip_smoke.py --dry-run-probe OUT``, phase 59's subprocess: the
+    port's ``probe_costs`` of llsc-100m at ``DRY_RUN_SHAPE`` on a 1 x 1
+    mesh over a one-rank ``"fake"`` group (no card), its result and
+    seconds written to ``OUT`` as JSON.  A process of its own, so that no
+    group outlives it."""
+    sys.path.insert(0, str(SRC))
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+
+    t0 = time.perf_counter()
+    with dryrun.fake_group(1):
+        mesh = make_mesh((1, 1), ("data", "model"), device="cpu")
+        cost = dryrun.probe_costs(get_config("llsc-100m"),
+                                  ShapeSpec(*DRY_RUN_SHAPE), mesh)
+    cost["seconds"] = time.perf_counter() - t0
+    Path(out).write_text(json.dumps(cost))
+    return 0
+
+
+def phase_dry_run(torch, model_lib, smi, train):
+    """Phase 59: the port's dry-run of phase 11's llsc-100m train step
+    (``dry_run_probe``, in a subprocess; meant to take 30 s at most: its
+    seconds are printed) against what phase
+    11 measured (``train``: its median step, peak memory and registry
+    entry).  Prints the counted FLOPs against 6 N D, the compute and
+    memory terms against the measured step (the step must take at least
+    the larger: a bound above it means the count is wrong), checks that
+    the counted arguments are exactly the bytes of an llsc-100m
+    ``TrainState`` and one 8 x 256 batch built on the card, prints temp +
+    arguments against ``max_memory_allocated`` with the ratio (no bound),
+    and the roofline verdict of the job's published duty, step and HBM."""
+    import shutil
+
+    from torch.utils._pytree import tree_flatten
+
+    from repro_torch.configs import get_config
+    from repro_torch.roofline import analysis
+    from repro_torch.train import train_step as ts
+
+    root = ROOT / "build" / "chip_smoke_dryrun"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    out, log = root / "cost.json", root / "probe.log"
+    cfg = get_config("llsc-100m")
+    _, S, B, _ = DRY_RUN_SHAPE
+    with open(log, "w") as f:
+        probe = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()),
+             "--dry-run-probe", str(out)],
+            cwd=ROOT, stdout=f, stderr=subprocess.STDOUT)
+        try:
+            # while the probe counts: the arguments it should count,
+            # built on the card
+            t0 = time.perf_counter()
+            state = ts.init_train_state(cfg, torch.Generator().manual_seed(0),
+                                        ts.default_opt_cfg(cfg),
+                                        device="cuda")
+            batch = {k: torch.zeros((B, S), dtype=torch.int32,
+                                    device="cuda")
+                     for k in ("tokens", "labels")}
+            built = sum(t.numel() * t.element_size()
+                        for t in tree_flatten((state, batch))[0]
+                        if isinstance(t, torch.Tensor))
+            torch.cuda.synchronize()
+            t_built = time.perf_counter() - t0
+            del state, batch
+            probe.wait(timeout=120)
+        finally:
+            if probe.poll() is None:
+                probe.kill()
+                probe.wait()
+    check(probe.returncode == 0, f"the dry-run probe exited "
+          f"{probe.returncode}: {log.read_text()[-3000:]}")
+    cost = json.loads(out.read_text())
+    shutil.rmtree(root, ignore_errors=True)
+    mf = model_lib.model_flops(cfg, B * S, training=True)
+    terms = analysis.roofline({"flops": cost["flops"],
+                               "bytes accessed": cost["bytes"]}, "",
+                              n_devices=1, model_flops_global=mf)
+    print(f"dry-run of {B} x {S} tokens, {cost['probe']}, no perf flags "
+          f"(attention plain and full S x S, as the reference's default), "
+          f"remat {cfg.remat!r}, counted in {cost['seconds']:.1f} s: "
+          f"{cost['flops']:.6e} FLOPs a step against 6 N D = {mf:.6e} "
+          f"({cost['flops'] / mf:.4f} x; the recompute of remat 'full' "
+          "adds a forward), "
+          f"{cost['bytes']:.6e} bytes (eager, unfused), collectives "
+          f"{cost['collective']}")
+    med = train["median_s"]
+    bound = max(terms.compute_s, terms.memory_s)
+    print(f"[{smi}] compute term {terms.compute_s * 1e3:.3f} ms, memory term "
+          f"{terms.memory_s * 1e3:.3f} ms (H100 SXM data sheet, 700 W) "
+          f"against phase 11's measured median step {med * 1e3:.3f} ms: "
+          f"the bound is {bound / med:.4f} of the step")
+    check(med >= bound, f"the dry-run's bound {bound * 1e3:.3f} ms exceeds "
+          f"the measured step {med * 1e3:.3f} ms: the count is wrong")
+    mem = cost["memory_analysis"]
+    print(f"argument_size_in_bytes {mem['argument_size_in_bytes']} against "
+          f"{built} bytes of a TrainState and a batch built on the card "
+          f"(in {t_built:.1f} s)")
+    check(mem["argument_size_in_bytes"] == built,
+          "the dry-run's arguments are not the train state's bytes")
+    est = mem["temp_size_in_bytes"] + mem["argument_size_in_bytes"]
+    peak = train["peak_bytes"]
+    print(f"[{smi}] temp + argument {est / 2 ** 20:.1f} MiB (eager, no "
+          f"flash, a step's live shards at their peak) against phase 11's "
+          f"max_memory_allocated {peak / 2 ** 20:.1f} MiB: ratio "
+          f"{est / peak:.4f}")
+    pub = train["published"]
+    verdict = analysis.verdict_from_monitoring(pub.duty_cycle,
+                                               pub.step_time_s,
+                                               pub.hbm_used_gb)
+    print(f"[{smi}] verdict_from_monitoring(duty {pub.duty_cycle:.6f}, step "
+          f"{pub.step_time_s:.6f} s, HBM {pub.hbm_used_gb:.3f} GB) of "
+          f"train:{cfg.name}: {verdict!r}")
+
+
 @contextlib.contextmanager
 def phase_clock(seconds, phase, title, smi):
     """Print phase ``phase``'s header and, after it, its seconds (kept in
@@ -3362,9 +3499,10 @@ def main() -> int:
           f"flash_kernel, remat 'full', through launch.train [{smi}] ===")
     by_path = {"serve llsc-100m": dict(serve_llsc),
                "serve mamba2-370m": dict(serve_mamba)}
+    llsc_train = {}
     by_path["train llsc-100m"] = phase_train(
         torch, np, counters, registry, perf, smi, "llsc-100m",
-        ("--flags", "flash_kernel"), phase=11)
+        ("--flags", "flash_kernel"), phase=11, stats=llsc_train)
 
     print("=== 13. card vs CPU, llsc-100m training, full width, float32 ===")
     train_card_vs_cpu(torch, perf, dataclasses.replace(
@@ -3468,9 +3606,12 @@ def main() -> int:
     with phase_clock(seconds, 58, "restore_checkpoint with shardings, one "
                      "NCCL rank, llsc-100m's train state", smi):
         phase_sharded_restore(torch, np)
-    print(f"phases 55-58: {sum(seconds.values()):.1f} s")
+    with phase_clock(seconds, 59, "the dry-run of llsc-100m's train step "
+                     "against phase 11", smi):
+        phase_dry_run(torch, model_lib, smi, llsc_train)
+    print(f"phases 55-59: {sum(seconds.values()):.1f} s")
 
-    print(f"=== 59. summary (whole run {time.perf_counter() - t_all:.1f} s) "
+    print(f"=== 60. summary (whole run {time.perf_counter() - t_all:.1f} s) "
           "===")
     for path, counts in by_path.items():
         print(f"launches, {path}: {counts}")
@@ -3491,4 +3632,6 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--a2a-rank"] and (SRC / "repro_torch").is_dir():
         sys.exit(a2a_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
                           sys.argv[5]))
+    if sys.argv[1:2] == ["--dry-run-probe"] and (SRC / "repro_torch").is_dir():
+        sys.exit(dry_run_probe(sys.argv[2]))
     sys.exit(main())

@@ -75,10 +75,12 @@ def cumsum_f32(x, dim):
     is not the innermost with one thread per column, left to right, but
     the innermost one with a tree and a 1-D tensor with CUB: a trailing
     dimension of two columns keeps every call on the first.  On the CPU
-    numpy's float32 accumulate does it."""
+    numpy's float32 accumulate does it.  A tensor on any other device (the
+    meta device, a dry-run's shards) takes the card's route: it yields the
+    shape and dtype, and its ops are the ones the card runs."""
     x = x.to(F32)
     dim = dim % x.dim()
-    if x.is_cuda:
+    if x.device.type != "cpu":
         return torch.cumsum(x.unsqueeze(-1).expand(*x.shape, 2), dim)[..., 0]
     return _CumsumCPU.apply(x, dim)
 

@@ -1,5 +1,6 @@
 """Launchers and distribution (counterpart of ``repro.launch``): mesh,
-sharding rules, fault tolerance.  The dry-run is not ported yet."""
+sharding rules, dry-run, fault tolerance.  ``launch.dryrun`` is not
+imported here, as in the reference: it is the dry-run's entry point."""
 from repro_torch.launch.fault import (CrashInjector, StragglerDetector,
                                       resume_latest)
 from repro_torch.launch.mesh import (axis_size, fsdp_axes, make_host_mesh,

@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops
 from repro_torch.models.layers import apply_rope_bshd, rmsnorm
 from repro_torch.models.perf_flags import current as _perf
+from repro_torch.models.sharding_hints import reshape
 
 F32 = torch.float32
 NEG_INF = -1e30
@@ -77,7 +78,7 @@ def chunked_attention(q, k, v, *, causal=True, window=None, q_offset=0,
     G = H // Hk
     scale = D ** -0.5
     dev = q.device
-    qg = q.reshape(B, Sq, Hk, G, D)
+    qg = reshape(q, B, Sq, Hk, G, D)
     q_off = torch.as_tensor(q_offset, device=dev)
     kvl = None
     if kv_valid_len is not None:
@@ -103,7 +104,7 @@ def chunked_attention(q, k, v, *, causal=True, window=None, q_offset=0,
                                   device=dev)
         outs.append(_attend_block(qc, kc, vc, q_pos, kv_pos,
                                   kv_valid_len=kvl, **kw))
-    return torch.cat(outs, dim=1).reshape(B, Sq, H, v.shape[-1])
+    return reshape(torch.cat(outs, dim=1), B, Sq, H, v.shape[-1])
 
 
 def gqa_project_qkv(params, x, n_heads, n_kv_heads, d_head):
@@ -118,9 +119,9 @@ def gqa_project_qkv(params, x, n_heads, n_kv_heads, d_head):
         q = q + params["bq"]
         k = k + params["bk"]
         v = v + params["bv"]
-    return (q.reshape(B, S, n_heads, d_head),
-            k.reshape(B, S, n_kv_heads, d_head),
-            v.reshape(B, S, n_kv_heads, d_head))
+    return (reshape(q, B, S, n_heads, d_head),
+            reshape(k, B, S, n_kv_heads, d_head),
+            reshape(v, B, S, n_kv_heads, d_head))
 
 
 def _flash_applicable(cfg, local: bool, S: int) -> bool:
@@ -158,24 +159,78 @@ def gqa_attention(params, x, cfg, *, local: bool, positions, chunk=None,
             q, k, v, causal=True, window=cfg.attn_window if local else None,
             softcap=cfg.attn_logit_softcap, chunk=chunk or cfg.attn_chunk,
             banded=banded)
-    return out.reshape(B, S, -1) @ params["wo"], (k, v)
+    return reshape(out, B, S, -1) @ params["wo"], (k, v)
 
 
 def _cache_write(cache, new, cache_len):
-    """Write new [B,1,...] at time position cache_len (an int or a per-row
-    [B] tensor) of cache [B,T,...], in place: the cache is the engine's
-    preallocated buffer, so nothing is copied.  Returns cache."""
+    """Write new [B,1,...] at time position cache_len (an int, a 0-d
+    tensor for every row, as the reference's scalar, or a per-row [B]
+    tensor) of cache [B,T,...], in place: the cache is the engine's
+    preallocated buffer, so nothing is copied.  Returns cache.  A 0-d
+    length scatters along the time axis, which a dry-run's DTensor cache
+    does on each shard, with no host read of the length."""
     if isinstance(cache_len, int):
         cache[:, cache_len:cache_len + new.shape[1]] = new.to(cache.dtype)
+    elif cache_len.dim() == 0:
+        if _time_shards(cache):
+            return _write_on_shards(cache, new, cache_len)
+        idx = cache_len.to(torch.int64).reshape((1,) * new.dim())
+        cache.scatter_(1, idx.expand(new.shape), new.to(cache.dtype))
     else:
         rows = torch.arange(cache.shape[0], device=cache.device)
         cache[rows, cache_len] = new[:, 0].to(cache.dtype)
     return cache
 
 
+def _time_shards(cache) -> list:
+    """The mesh dims that shard the time axis of ``cache``, a ``DTensor``
+    (context-parallel decode), major first; [] for any other tensor."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    if not isinstance(cache, DTensor):
+        return []
+    return [i for i, p in enumerate(cache.placements)
+            if isinstance(p, Shard) and p.dim == 1]
+
+
+def _write_on_shards(cache, new, cache_len):
+    """The write of ``_cache_write`` into a ``DTensor`` cache whose time
+    axis is sharded (the dry-run's context-parallel decode): each device
+    writes the token into its own slice of time, where the position falls
+    in it, and keeps its rows elsewhere (``local_map``); DTensor would
+    gather the whole cache to scatter into it."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh, placements = cache.device_mesh, cache.placements
+    dims = _time_shards(cache)
+    coord = mesh.get_coordinate()
+    shard = 0
+    for i in dims:
+        shard = shard * mesh.size(i) + coord[i]
+    whole = tuple(Replicate() if i in dims else p
+                  for i, p in enumerate(placements))
+
+    def write(c, n, length):
+        T = c.shape[1]
+        pos = length.to(torch.int64) - shard * T
+        mine = (pos >= 0) & (pos < T)
+        idx = pos.clamp(0, T - 1).reshape((1,) * n.dim()).expand(n.shape)
+        return c.scatter_(1, idx, torch.where(mine, n.to(c.dtype),
+                                              c.gather(1, idx)))
+
+    return local_map(write, out_placements=(placements,),
+                     in_placements=(placements, whole, (Replicate(),)
+                                    * mesh.ndim),
+                     device_mesh=mesh, redistribute_inputs=True)(
+        cache, new, cache_len)
+
+
 def _decode_positions(cache_len, device):
     if isinstance(cache_len, int):
         return torch.full((1,), cache_len, dtype=torch.int32, device=device)
+    if cache_len.dim() == 0:
+        return cache_len.reshape(1).to(torch.int32)            # [1]
     return cache_len[:, None].to(torch.int32)                  # [B,1]
 
 
@@ -198,7 +253,7 @@ def gqa_decode(params, x, cfg, cache_k, cache_v, cache_len, *,
                             q_offset=cache_len, kv_valid_len=cache_len + 1,
                             softcap=cfg.attn_logit_softcap)
     B = x.shape[0]
-    return out.reshape(B, 1, -1) @ params["wo"], cache_k, cache_v
+    return reshape(out, B, 1, -1) @ params["wo"], cache_k, cache_v
 
 
 # --------------------------------------------------------------------------
@@ -211,18 +266,18 @@ def cross_attention(params, x, enc_k, enc_v, cfg):
     and values enc_k, enc_v [B,S_enc,Hk,Dh] (``cross_kv``'s, or the cache's
     ``xk`` and ``xv``)."""
     B, S, _ = x.shape
-    q = (x @ params["wq"]).reshape(B, S, cfg.n_heads, cfg.d_head)
+    q = reshape(x @ params["wq"], B, S, cfg.n_heads, cfg.d_head)
     out = chunked_attention(q, enc_k, enc_v, causal=False,
                             chunk=cfg.attn_chunk)
-    return out.reshape(B, S, -1) @ params["wo"]
+    return reshape(out, B, S, -1) @ params["wo"]
 
 
 def cross_kv(params, enc_out, n_kv_heads, d_head):
     """The keys and values of the encoder's output enc_out [B,S_enc,D],
     each [B,S_enc,n_kv_heads,d_head]."""
     B, S, _ = enc_out.shape
-    k = (enc_out @ params["wk"]).reshape(B, S, n_kv_heads, d_head)
-    v = (enc_out @ params["wv"]).reshape(B, S, n_kv_heads, d_head)
+    k = reshape(enc_out @ params["wk"], B, S, n_kv_heads, d_head)
+    v = reshape(enc_out @ params["wv"], B, S, n_kv_heads, d_head)
     return k, v
 
 
@@ -240,13 +295,13 @@ def _mla_qkv_full(params, x, cfg):
     H, nope = cfg.n_heads, spec.qk_nope_head_dim
     cq = rmsnorm({"scale": params["q_norm"]}, x @ params["wq_a"],
                  cfg.norm_eps)
-    q = (cq @ params["wq_b"]).reshape(B, S, H, spec.qk_head_dim)
+    q = reshape(cq @ params["wq_b"], B, S, H, spec.qk_head_dim)
     q_nope, q_rope = q.split([nope, spec.qk_rope_head_dim], dim=-1)
     ckv, k_rope = (x @ params["wkv_a"]).split(
         [spec.kv_lora_rank, spec.qk_rope_head_dim], dim=-1)
     # a strided view (rows rank + rope apart), which the norm kernel reads
     ckv = rmsnorm({"scale": params["kv_norm"]}, ckv, cfg.norm_eps)
-    kv = (ckv @ params["wkv_b"]).reshape(B, S, H, nope + spec.v_head_dim)
+    kv = reshape(ckv @ params["wkv_b"], B, S, H, nope + spec.v_head_dim)
     k_nope, v = kv.split([nope, spec.v_head_dim], dim=-1)
     return q_nope, q_rope, k_nope, k_rope[:, :, None, :], v, ckv
 
@@ -264,7 +319,7 @@ def mla_attention(params, x, cfg, *, positions):
     k = torch.cat([k_nope, k_rope.expand(
         *k_nope.shape[:-1], spec.qk_rope_head_dim)], dim=-1)
     out = chunked_attention(q, k, v, causal=True, chunk=cfg.attn_chunk)
-    return out.reshape(B, S, -1) @ params["wo"], (ckv, k_rope[:, :, 0])
+    return reshape(out, B, S, -1) @ params["wo"], (ckv, k_rope[:, :, 0])
 
 
 def mla_decode(params, x, cfg, cache_ckv, cache_krope, cache_len):
@@ -280,7 +335,7 @@ def mla_decode(params, x, cfg, cache_ckv, cache_krope, cache_len):
     nope, rank = spec.qk_nope_head_dim, spec.kv_lora_rank
     cq = rmsnorm({"scale": params["q_norm"]}, x @ params["wq_a"],
                  cfg.norm_eps)
-    q = (cq @ params["wq_b"]).reshape(B, 1, H, spec.qk_head_dim)
+    q = reshape(cq @ params["wq_b"], B, 1, H, spec.qk_head_dim)
     q_nope, q_rope = q.split([nope, spec.qk_rope_head_dim], dim=-1)
     pos = _decode_positions(cache_len, x.device)
     q_rope = apply_rope_bshd(q_rope, pos, cfg.rope_theta)
@@ -292,7 +347,7 @@ def mla_decode(params, x, cfg, cache_ckv, cache_krope, cache_len):
     cache_ckv = _cache_write(cache_ckv, ckv_new, cache_len)
     cache_krope = _cache_write(cache_krope, krope_new, cache_len)
 
-    wkv_b = params["wkv_b"].reshape(rank, H, nope + spec.v_head_dim)
+    wkv_b = reshape(params["wkv_b"], rank, H, nope + spec.v_head_dim)
     w_uk, w_uv = wkv_b[:, :, :nope], wkv_b[:, :, nope:]
     q_lat = torch.einsum("bqhn,rhn->bqhr", q_nope, w_uk)
     scores = (torch.einsum("bqhr,btr->bhqt", q_lat.to(F32),
@@ -300,7 +355,7 @@ def mla_decode(params, x, cfg, cache_ckv, cache_krope, cache_len):
               + torch.einsum("bqhe,bte->bhqt", q_rope.to(F32),
                              cache_krope.to(F32))) * spec.qk_head_dim ** -0.5
     kv_pos = torch.arange(cache_ckv.shape[1], device=x.device)
-    if isinstance(cache_len, int):
+    if isinstance(cache_len, int) or cache_len.dim() == 0:
         valid = (kv_pos <= cache_len)[None, None, None, :]
     else:
         valid = (kv_pos[None, :] <= cache_len[:, None])[:, None, None, :]
@@ -308,4 +363,4 @@ def mla_decode(params, x, cfg, cache_ckv, cache_krope, cache_len):
     weights = torch.softmax(scores, dim=-1).to(cache_ckv.dtype)
     out_lat = torch.einsum("bhqt,btr->bqhr", weights, cache_ckv)
     out = torch.einsum("bqhr,rhv->bqhv", out_lat, w_uv)
-    return out.reshape(B, 1, -1) @ params["wo"], cache_ckv, cache_krope
+    return reshape(out, B, 1, -1) @ params["wo"], cache_ckv, cache_krope

@@ -43,7 +43,8 @@ import torch.nn.functional as F
 
 from repro_torch.models.layers import Leaf
 from repro_torch.models.perf_flags import current as _perf
-from repro_torch.models.sharding_hints import current_hints, shard_hint
+from repro_torch.models.sharding_hints import (current_hints, reshape,
+                                               shard_hint)
 
 F32 = torch.float32
 
@@ -165,15 +166,101 @@ def moe_ffn(params, x, spec, act: str = "swiglu", n_groups=None):
     T = (B * S) // G
     E, k = spec.n_experts, spec.top_k
     C = capacity(T, spec)
-    xg = x.reshape(G, T, d)
+    xg = reshape(x, G, T, d)
     logits = xg.to(F32) @ params["router"].to(F32)        # [G, T, E]
     weights, idx = _route(logits, spec)
     e_flat, w_flat = idx.reshape(G, T * k), weights.reshape(G, T * k)
+    layout = _shard_layout(xg, E)
+    if layout is not None:
+        return reshape(_moe_on_shards(params, xg, e_flat, w_flat, act, k,
+                                      C, layout), B, S, d)
     pos = _positions(e_flat, E)
     buf = shard_hint(_dispatch(xg, e_flat, pos, E, C), "moe_dispatch")
     out_buf = shard_hint(_experts(params, buf, act), "moe_dispatch")
     y = shard_hint(_combine(out_buf, e_flat, pos, w_flat, k), "moe_out")
-    return y.reshape(B, S, d)
+    return reshape(y, B, S, d)
+
+
+def _shard_layout(xg, E: int):
+    """Where ``xg`` [G, T, d] is a ``DTensor`` in a sharding-hint context
+    with a mesh (the dry-run's): (mesh, pg, pe, ep), with ``pg`` the
+    placements of a [G, ...] tensor whose groups shard as the
+    ``"moe_dispatch"`` hint's first entry (the FSDP axes; replicated where
+    G does not divide), ``pe`` those of a [G, E, C, d] buffer under that
+    hint (experts over the tensor axis, where E divides), and ``ep`` the
+    mesh dim the experts shard over, or None.  Else None."""
+    state = current_hints()
+    if state is None or state[0] is None or "moe_dispatch" not in state[1]:
+        return None
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(xg, DTensor):
+        return None
+    from repro_torch.launch.sharding import _axes_or_none, to_placements
+
+    mesh, hints = state
+    g_entry, e_entry = hints["moe_dispatch"][:2]
+    g_entry = _axes_or_none(mesh, xg.shape[0], g_entry)
+    e_entry = _axes_or_none(mesh, E, e_entry)
+    ep = None if e_entry is None else mesh.mesh_dim_names.index(e_entry)
+    return (mesh, to_placements((g_entry,), mesh),
+            to_placements((g_entry, e_entry), mesh), ep)
+
+
+def _moe_on_shards(params, xg, e_flat, w_flat, act, k, C, layout):
+    """The sort/scatter MoE on each device's shards, the reference's
+    ``moe_dispatch`` / ``moe_out`` layout: a device holds its groups
+    (``pg``) and, under expert parallelism, its ``E / n`` experts (``pe``).
+    Positions, dispatch and combine run on the local shards
+    (``local_map``): a device writes and reads only its own experts' rows,
+    so the combine yields a partial sum over the expert axis, which the
+    ``"moe_out"`` hint reduces.  Under expert parallelism the experts'
+    products run on the local shards too, each device's experts gathered
+    whole over the FSDP axes; else they are DTensor's."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh, pg, pe, ep = layout
+    E = params["w1"].shape[0]
+    E_loc = E // mesh.size(ep) if ep is not None else E
+    lo = mesh.get_local_rank(ep) * E_loc if ep is not None else 0
+
+    def local_experts(e_flat):
+        mine = (e_flat >= lo) & (e_flat < lo + E_loc)
+        return mine, (e_flat - lo).clamp(0, E_loc - 1)
+
+    def dispatch(xg, e_flat):
+        pos = _positions(e_flat, E)
+        mine, e_loc = local_experts(e_flat)
+        # another device's assignment goes to the dropped row C
+        return pos, _dispatch(xg, e_loc, torch.where(mine, pos, C), E_loc, C)
+
+    def combine(out_buf, e_flat, pos, w_flat):
+        mine, e_loc = local_experts(e_flat)
+        return _combine(out_buf, e_loc, pos,
+                        torch.where(mine, w_flat, 0.0), k)
+
+    py = list(pg)
+    if ep is not None:
+        py[ep] = Partial()
+    pos, buf = local_map(dispatch, out_placements=(pg, pe),
+                         in_placements=(pg, pg), device_mesh=mesh,
+                         redistribute_inputs=True)(xg, e_flat)
+    if ep is None:
+        out_buf = _experts(params, buf, act)
+    else:
+        pw = tuple(Shard(0) if i == ep else Replicate()
+                   for i in range(mesh.ndim))
+        out_buf = local_map(
+            lambda buf, w1, w3, w2: _experts(
+                {"w1": w1, "w3": w3, "w2": w2}, buf, act),
+            out_placements=(pe,), in_placements=(pe, pw, pw, pw),
+            device_mesh=mesh, redistribute_inputs=True)(
+            buf, params["w1"], params["w3"], params["w2"])
+    y = local_map(combine, out_placements=(tuple(py),),
+                  in_placements=(pe, pg, pg, pg), device_mesh=mesh,
+                  redistribute_inputs=True)(out_buf, e_flat, pos, w_flat)
+    return shard_hint(y, "moe_out")
 
 
 def moe_ffn_dense_reference(params, x, spec, act: str = "swiglu"):

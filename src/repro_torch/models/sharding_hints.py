@@ -7,14 +7,19 @@ dimension) for the active ``DeviceMesh``; model code calls
 :func:`shard_hint` at the reference's points (block boundaries, MoE
 dispatch buffers, the loss head and logits).  There a ``DTensor`` is
 redistributed to its table entry, as ``with_sharding_constraint`` binds an
-array in the reference.  Outside a context, and for any tensor that is not
-a ``DTensor``, a hint returns the tensor itself: on one card it costs a
-thread-local read.
+array in the reference, and so is its gradient in the backward, as the
+constraint's transpose binds the cotangent (else DTensor would hand a
+partial gradient on, and the backward's products would run unsharded).
+Outside a context, and for any tensor that is not a ``DTensor``, a hint
+returns the tensor itself: on one card it costs a thread-local read.
 """
 from __future__ import annotations
 
 import contextlib
+import math
 import threading
+
+import torch
 
 _state = threading.local()
 
@@ -53,4 +58,74 @@ def shard_hint(x, name: str):
     from repro_torch.launch.sharding import to_placements
 
     spec = tuple(hints[name])[: x.ndim]
-    return x.redistribute(mesh, to_placements(spec, mesh))
+    return _Hint.apply(x, mesh, to_placements(spec, mesh))
+
+
+class _Hint(torch.autograd.Function):
+    """Redistribute a ``DTensor`` to ``placements``, and its gradient to
+    the same placements."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, placements):
+        ctx.mesh, ctx.placements = mesh, placements
+        return x.redistribute(mesh, placements)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.redistribute(ctx.mesh, ctx.placements), None, None
+
+
+
+def reshape(x, *shape):
+    """``x.reshape(*shape)``.  For a ``DTensor`` (the dry-run's), each
+    mesh dim that shards a dimension the reshape cannot carry is first
+    replicated (an all-gather), and so is the gradient's on the way back:
+    DTensor refuses a view of a dimension its shards split unevenly, or
+    that splits a sharded dimension into a leading part the shards do not
+    divide (20 heads over a model axis of 16) or merges it behind another,
+    where XLA reshards on its own.  Any other tensor is reshaped as it
+    is."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor):
+        return x.reshape(*shape)
+    return _Reshape.apply(x, shape)
+
+
+def _carried(x, shape):
+    """``x`` with every mesh dim replicated that shards a dimension the
+    reshape of ``x`` to ``shape`` cannot carry."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    shape = list(shape)
+    if -1 in shape:
+        shape[shape.index(-1)] = x.numel() // -math.prod(shape)
+    starts, p = {}, 1                  # prefix product -> first dim > 1
+    for size in shape:
+        if size > 1:
+            starts.setdefault(p, size)
+        p *= size
+    mesh, placements = x.device_mesh, list(x.placements)
+    for dim in {pl.dim for pl in placements if isinstance(pl, Shard)}:
+        n = math.prod(mesh.size(i) for i, pl in enumerate(placements)
+                      if isinstance(pl, Shard) and pl.dim == dim)
+        size = starts.get(math.prod(x.shape[:dim]), 1)
+        if size != x.shape[dim] and (x.shape[dim] % n or size % n):
+            placements = [Replicate() if isinstance(pl, Shard)
+                          and pl.dim == dim else pl for pl in placements]
+    if placements != list(x.placements):
+        x = x.redistribute(mesh, placements)
+    return x
+
+
+class _Reshape(torch.autograd.Function):
+    """``_carried(x).reshape``, and its gradient ``_carried`` back."""
+
+    @staticmethod
+    def forward(ctx, x, shape):
+        ctx.in_shape = tuple(x.shape)
+        return _carried(x, shape).reshape(*shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _carried(g, ctx.in_shape).reshape(ctx.in_shape), None

@@ -214,12 +214,61 @@ def mamba2_forward(params, x, cfg, *, initial_state=None):
     dt = F.softplus(dt_raw.to(F32) + params["dt_bias"])
     A = -torch.exp(params["A_log"])
 
-    y, final_state = ssd_chunked(xs, dt, A, Bmat, Cmat, chunk=cfg.ssm.chunk,
-                                 initial_state=initial_state)
+    layout = _head_layout(xs, G) if initial_state is None else None
+    if layout is not None:
+        y, final_state = _ssd_on_shards(xs, dt, A, Bmat, Cmat,
+                                        cfg.ssm.chunk, layout)
+    else:
+        y, final_state = ssd_chunked(xs, dt, A, Bmat, Cmat,
+                                     chunk=cfg.ssm.chunk,
+                                     initial_state=initial_state)
     y = y + xs * params["D"].to(x.dtype)[None, None, :, None]
     y = y.reshape(Bsz, S, d_in)
     y = _gated_norm(params["norm"], y, z, cfg.norm_eps)
     return y @ params["out_proj"], (conv_tail, final_state)
+
+
+def _head_layout(xs, G: int):
+    """Where ``xs`` [b,s,h,p] is a ``DTensor`` in a sharding-hint context
+    with a mesh (the dry-run's), its one group's heads divide the tensor
+    axis: (mesh, placements of a [b, s, h, ...] tensor with the batch over
+    the FSDP axes where it divides and the heads over the tensor axis,
+    placements of B and C [b, s, g, n] and of A [h]).  Else None."""
+    from repro_torch.models.sharding_hints import current_hints
+
+    state = current_hints()
+    if G != 1 or state is None or state[0] is None:
+        return None
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(xs, DTensor):
+        return None
+    from repro_torch.launch.mesh import fsdp_axes, tp_axis
+    from repro_torch.launch.sharding import _axes_or_none, to_placements
+
+    mesh = state[0]
+    tp = _axes_or_none(mesh, xs.shape[2], tp_axis(mesh))
+    if tp is None:
+        return None
+    b = _axes_or_none(mesh, xs.shape[0], fsdp_axes(mesh))
+    return (mesh, to_placements((b, None, tp), mesh),
+            to_placements((b,), mesh), to_placements((tp,), mesh))
+
+
+def _ssd_on_shards(xs, dt, A, B, C, chunk, layout):
+    """``ssd_chunked`` on each device's heads (``local_map``): heads are
+    independent given the one group's B and C, so a device scans its own
+    ``h / n`` heads of its rows, where DTensor would replicate the scan
+    over the tensor axis.  The final state [b, 1, h, p, n] shards its
+    heads as the cache's ``ssd`` leaf does."""
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh, heads, rows, per_head = layout
+    return local_map(
+        lambda xs, dt, A, B, C: ssd_chunked(xs, dt, A, B, C, chunk=chunk),
+        out_placements=(heads, heads),
+        in_placements=(heads, heads, per_head, rows, rows),
+        device_mesh=mesh, redistribute_inputs=True)(xs, dt, A, B, C)
 
 
 def mamba2_decode(params, x, cfg, conv_state, ssd_state):

@@ -75,7 +75,7 @@ from repro_torch.models.layers import Leaf, embed, mlp, rmsnorm, zeros
 from repro_torch.models.perf_flags import current as _perf
 from repro_torch.models.perf_flags import perf_flags
 from repro_torch.models.sharding_hints import (current_hints, hint_context,
-                                               shard_hint)
+                                               reshape, shard_hint)
 
 F32 = torch.float32
 
@@ -362,13 +362,13 @@ def apply_block_full(bp, x, cfg, mixer_kind, mlp_kind, positions,
             bp["mixer"], h, cfg, local=local, positions=positions,
             banded=banded or (_perf().banded_local and local))
         cache = {"k": k.to(dt), "v": v.to(dt)}
-    x = x + y
+    x = shard_hint(x + y, "activation")
     if cfg.is_encdec:
         h = rmsnorm(bp["ln_x"], x, cfg.norm_eps)
         cache["xk"], cache["xv"] = attn_mod.cross_kv(bp["xattn"], enc_out,
                                                      *_enc_kv_heads(cfg))
-        x = x + attn_mod.cross_attention(bp["xattn"], h, cache["xk"],
-                                         cache["xv"], cfg)
+        x = shard_hint(x + attn_mod.cross_attention(
+            bp["xattn"], h, cache["xk"], cache["xv"], cfg), "activation")
     x, aux = _apply_mlp(bp, x, cfg, mlp_kind, want_aux=want_aux)
     x = shard_hint(x, "activation")
     if _perf().bf16_grads:
@@ -388,12 +388,12 @@ def apply_block_decode(bp, x, cfg, mixer_kind, mlp_kind, cache, cache_len):
         y, _, _ = attn_mod.gqa_decode(bp["mixer"], h, cfg, cache["k"],
                                       cache["v"], cache_len,
                                       local=mixer_kind == "attn_local")
-    x = x + y
+    x = shard_hint(x + y, "activation")
     if cfg.is_encdec:
         h = rmsnorm(bp["ln_x"], x, cfg.norm_eps)
-        x = x + attn_mod.cross_attention(bp["xattn"], h, cache["xk"],
-                                         cache["xv"], cfg)
-    return _apply_mlp(bp, x, cfg, mlp_kind)[0]
+        x = shard_hint(x + attn_mod.cross_attention(
+            bp["xattn"], h, cache["xk"], cache["xv"], cfg), "activation")
+    return shard_hint(_apply_mlp(bp, x, cfg, mlp_kind)[0], "activation")
 
 
 def input_embeddings(params, cfg, tokens, frontend_embeds=None):
@@ -429,8 +429,10 @@ def encode(params, cfg, enc_embeds):
                                            d_head)
         o = attn_mod.chunked_attention(q, k, v, causal=False,
                                        chunk=cfg.attn_chunk)
-        x = x + o.reshape(x.shape[0], x.shape[1], -1) @ bp["mixer"]["wo"]
-        x = x + mlp(bp["mlp"], rmsnorm(bp["ln2"], x, cfg.norm_eps), "gelu")
+        x = shard_hint(x + reshape(o, x.shape[0], x.shape[1], -1)
+                       @ bp["mixer"]["wo"], "activation")
+        x = shard_hint(x + mlp(bp["mlp"], rmsnorm(bp["ln2"], x, cfg.norm_eps),
+                               "gelu"), "activation")
     return rmsnorm(params["enc_norm"], x, cfg.norm_eps)
 
 
@@ -570,10 +572,14 @@ def _head_logits(w, tied, h):
 def _chunk_loss(w, tied, hc, lc):
     """(sum of logsumexp - gold over labels >= 0, their count) of one
     chunk; hc [B,C,d], lc [B,C].  The logits take the ``"logits"``
-    sharding hint."""
+    sharding hint.  The gold logits are gathered from the rows of the
+    logits flattened to [B*C, V]: the same values, and a lookup that a
+    vocab-sharded DTensor (the dry-run's) takes as a masked partial
+    reduce, which it cannot do for a 3-d gather."""
     logits = shard_hint(_head_logits(w, tied, hc), "logits")
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, lc.clamp(min=0)[..., None])[..., 0]
+    gold = torch.gather(logits.flatten(0, 1), 1,
+                        lc.clamp(min=0).reshape(-1, 1)).reshape(lc.shape)
     valid = lc >= 0
     return torch.where(valid, lse - gold, 0.0).sum(), valid.sum()
 
@@ -639,10 +645,10 @@ def prefill(params, cfg, tokens, frontend_embeds=None):
 
 
 def decode_step(params, cfg, token, caches, cache_len):
-    """One decode step.  token [B,1]; cache_len an int or a per-row [B]
-    tensor (read by attention layers only).  Writes the new k, v (or conv
-    and ssd states) into ``caches`` in place and returns (logits [B,V]
-    fp32, caches)."""
+    """One decode step.  token [B,1]; cache_len an int, a 0-d tensor (one
+    length for every row) or a per-row [B] tensor (read by attention
+    layers only).  Writes the new k, v (or conv and ssd states) into
+    ``caches`` in place and returns (logits [B,V] fp32, caches)."""
     check_supported(cfg)
     x = embed(params["embed"], token, cfg.embed_scale)
     for bp, key, i, kind, mlp_kind in _blocks(params, cfg):

@@ -1,7 +1,7 @@
 """chip_smoke.py on the CPU: its check that a profiler trace of the device
 holds every record of the calls it traced (``trace_losses``), on made-up
 traces; its phase list; the launch arithmetic of phase 55's sampled serve;
-and phase 57's inputs."""
+phase 57's inputs; and phase 59's dry-run probe."""
 import importlib.util
 from pathlib import Path
 
@@ -43,16 +43,16 @@ def _docstring_phases(mod):
 
 
 def test_phase_list_runs_1_to_59_with_the_summary_last():
-    """The docstring lists phases 1-59 in order; main prints the new
-    phases 55-58 through ``phase_clock`` and the summary as 59."""
+    """The docstring lists phases 1-60 in order; main prints the phases
+    55-59 through ``phase_clock`` and the summary last, as 60."""
     import inspect
 
     mod = _chip_smoke()
-    assert _docstring_phases(mod) == list(range(1, 60))
+    assert _docstring_phases(mod) == list(range(1, 61))
     src = inspect.getsource(mod.main)
-    for phase in (55, 56, 57, 58):
+    for phase in (55, 56, 57, 58, 59):
         assert f"phase_clock(seconds, {phase}, " in src
-    assert src.index("=== 59. summary") > src.index("phase_clock(seconds, 58")
+    assert src.index("=== 60. summary") > src.index("phase_clock(seconds, 59")
     assert '"serve llsc-100m, sampled"' in src
 
 
@@ -114,3 +114,36 @@ def test_a2a_inputs_are_granite_experts_at_full_width():
         assert shape[0] * shape[1] == mod.A2A_WORLD
         assert spec.n_experts % shape[1] == 0
         assert x.shape[0] % shape[0] == 0 and x.shape[1] % shape[1] == 0
+
+
+def test_dry_run_probe_counts_phase_11s_step(tmp_path):
+    """Phase 59's probe on the CPU, as the card runs it: llsc-100m's train
+    step at 8 x 256 on a one-rank group; its arguments are the bytes of a
+    TrainState and an int32 batch built on the CPU, its FLOPs above 6 N D
+    (remat "full" recomputes the blocks' forward, and attention adds its
+    own), and no group outlives it."""
+    import json
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as model_lib
+    from repro_torch.train import train_step as ts
+
+    mod = _chip_smoke()
+    out = tmp_path / "cost.json"
+    assert mod.dry_run_probe(out) == 0
+    assert not torch.distributed.is_initialized()
+    cost = json.loads(out.read_text())
+    cfg = get_config("llsc-100m")
+    _, S, B, _ = mod.DRY_RUN_SHAPE
+    state = ts.init_train_state(cfg, torch.Generator().manual_seed(0),
+                                ts.default_opt_cfg(cfg), device="cpu")
+    built = sum(t.numel() * t.element_size()
+                for t in torch.utils._pytree.tree_flatten(state)[0]
+                if isinstance(t, torch.Tensor)) + 2 * B * S * 4
+    assert cost["memory_analysis"]["argument_size_in_bytes"] == built
+    mf = model_lib.model_flops(cfg, B * S, training=True)
+    assert 1 < cost["flops"] / mf < 2
+    assert cost["collective"] == dict.fromkeys(cost["collective"], 0.0)
+    assert cost["probe"] == f"full-depth(P={cfg.n_periods})"
