@@ -10,7 +10,8 @@ It imports nothing of JAX or of the JAX package.  Phases:
 2. build the three CUDA sources from ``src/repro_torch/kernels/csrc`` with
    nvcc (flash attention; RMSNorm and gated RMSNorm; SSD intra-chunk), one
    process per source, started together, and print each kernel
-   instance's ptxas registers and spills;
+   instance's ptxas registers and spills, and the tile, stages and
+   dynamic shared memory of the Hopper flash body's six instances;
 3. hold each of the four kernels against its plain PyTorch version on the
    card on the test sweeps and at the main paths' shapes (tolerance 2e-5 in
    float32 and 2e-2 in bfloat16 for attention and the norms, 2e-4 for the
@@ -29,7 +30,13 @@ It imports nothing of JAX or of the JAX package.  Phases:
    launching; then time kernel, plain version and the library call where
    one exists (device
    time from torch.profiler's kernel records, with the CUDA-event time of
-   a call beside it) against the data-sheet bound: flash attention at
+   a call beside it, the host's cost of a call where the host cannot keep
+   ahead) against the data-sheet bound, with flash's plan (mode, tile,
+   stages, grid), TFLOP/s, share of the bound and ratio to SDPA at each
+   shape, and the wgmma body's other mode checked and timed beside the
+   plan's where the shape's 128-row work tiles lie within a factor of 2
+   of the card's SM count (the evidence for the plan's rule, whose time
+   the phase prints): flash attention at
    reduced gemma3's D = 16 (S = 64), at gemma3-1b's 4 query and 1 KV head
    of 256 (S = 256 and 640, and a train step's 8 x 256), at S = 128 and
    256 (jamba's 64 query and 8 KV heads of 128 among them), RMSNorm at
@@ -297,6 +304,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import platform
@@ -321,11 +329,32 @@ UPDATE_CLEAR = 1e-2
 UPDATE_RTOL = 1e-2
 
 
-# The flash instances added for gemma3-1b (D = 256) and the reduced
-# configs (D = 16), by their names in ptxas' log: neither may spill.
-NEW_FLASH_INSTANCES = ("flash_fwd_mma_kernel<Li16>",
-                       "flash_fwd_mma_kernel<Li256>",
-                       "flash_fwd_kernel<fLi16>", "flash_fwd_kernel<fLi256>")
+# The flash instances of the Hopper body (D 64, 128, 256 in rows mode,
+# Lb0, and split mode, Lb1), by their names in ptxas' log, with (D, split):
+# none may spill.
+NEW_FLASH_INSTANCES = {
+    f"flash_fwd_wgmma_kernel<Li{D}ELb{int(split)}>": (D, split)
+    for D in (64, 128, 256) for split in (False, True)}
+# The mma.sync body at D 16 and the fp32 body at D 16 and 256, which the
+# reduced configs and gemma3-1b's fp32 check run: none may spill either.
+OTHER_FLASH_INSTANCES = ("flash_fwd_mma_kernel<Li16>",
+                         "flash_fwd_kernel<fLi16>", "flash_fwd_kernel<fLi256>")
+
+# (H, Hk, B, S, D) of the causal bf16 flash timings in phase 3 (see
+# ``phase_kernels``); ``flash_call_cost.py`` times the same shapes.
+FLASH_BF16_SHAPES = ((8, 8, 4, 128, 64), (8, 8, 4, 256, 64),
+                     (8, 8, 1, 128, 64), (8, 8, 8, 256, 64),
+                     (16, 8, 1, 128, 128), (16, 8, 1, 256, 128),
+                     (16, 8, 4, 384, 128), (16, 8, 1, 384, 128),
+                     (16, 8, 1, 512, 128), (16, 8, 8, 512, 128),
+                     (4, 1, 1, 64, 16), (4, 1, 1, 256, 256),
+                     (4, 1, 1, 640, 256), (4, 1, 8, 256, 256),
+                     (20, 20, 1, 256, 128), (40, 10, 1, 256, 128),
+                     (20, 20, 8, 256, 128),
+                     (64, 8, 1, 128, 128), (64, 8, 1, 256, 128),
+                     (16, 8, 8, 256, 64), (16, 8, 1, 128, 64),
+                     (16, 8, 1, 256, 64), (12, 12, 8, 256, 64),
+                     (12, 12, 1, 128, 64), (12, 12, 1, 256, 64))
 
 
 def check(cond, msg):
@@ -461,6 +490,18 @@ def raises(fn, exc, text):
         check(text in str(e), f"unexpected error: {e}")
         return str(e)
     raise RuntimeError(f"chip_smoke: expected {exc.__name__} ({text})")
+
+
+@contextlib.contextmanager
+def flash_mode(fa, mode):
+    """Flash's launches with the wgmma body's mode forced to ``mode``
+    ("rows" or "split") instead of the plan's rule."""
+    plan = fa._plan
+    fa._plan = functools.partial(plan, mode=mode)
+    try:
+        yield
+    finally:
+        fa._plan = plan
 
 
 def check_refusals(torch, fa, rn, randn):
@@ -660,19 +701,9 @@ def phase_kernels(torch, fa, rn, ref, hw):
     F = torch.nn.functional
     rows = []
     bf16 = torch.bfloat16
-    for H, Hk, B, S, D in ((8, 8, 4, 128, 64), (8, 8, 4, 256, 64),
-                           (8, 8, 1, 128, 64), (8, 8, 8, 256, 64),
-                           (16, 8, 1, 128, 128), (16, 8, 1, 256, 128),
-                           (16, 8, 4, 384, 128), (16, 8, 1, 384, 128),
-                           (16, 8, 1, 512, 128), (16, 8, 8, 512, 128),
-                           (4, 1, 1, 64, 16), (4, 1, 1, 256, 256),
-                           (4, 1, 1, 640, 256), (4, 1, 8, 256, 256),
-                           (20, 20, 1, 256, 128), (40, 10, 1, 256, 128),
-                           (20, 20, 8, 256, 128),
-                           (64, 8, 1, 128, 128), (64, 8, 1, 256, 128),
-                           (16, 8, 8, 256, 64), (16, 8, 1, 128, 64),
-                           (16, 8, 1, 256, 64), (12, 12, 8, 256, 64),
-                           (12, 12, 1, 128, 64), (12, 12, 1, 256, 64)):
+    sms = fa._sm_count(0)
+    other_s, others = 0.0, 0
+    for H, Hk, B, S, D in FLASH_BF16_SHAPES:
         q = randn(B, S, H, D, dtype=bf16)
         k, v = (randn(B, S, Hk, D, dtype=bf16) for _ in range(2))
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -685,8 +716,29 @@ def phase_kernels(torch, fa, rn, ref, hw):
                        plain_ms=lambda: ref.attention_ref(qt, kt, vt),
                        library_ms=lambda: F.scaled_dot_product_attention(
                            qt, kt, vt, is_causal=True, enable_gqa=H != Hk)))
+        plan = fa._plan(B, H, Hk, S, S, D, bf16, sms)
         print(f"  bound {bound * 1e3:.6f} ms ({by}: {n_bytes} B, {flops} "
-              "FLOP)")
+              f"FLOP); plan {plan.mode} ({plan.block_m} rows x "
+              f"{plan.block_n} keys, {plan.stages} stages, grid "
+              f"{plan.grid}): {flops / t['ms'] / 1e9:.1f} TFLOP/s, "
+              f"{bound * 1e3 / t['ms']:.4f} of the bound, "
+              f"{t['ms'] / t['library_ms']:.3f}x SDPA's time")
+        tiles = B * H * -(-S // 128)
+        if plan.mode in ("rows", "split") and sms // 2 < tiles <= 2 * sms:
+            # near the rule, its other mode checked and timed beside it
+            t0 = time.perf_counter()
+            other = "split" if plan.mode == "rows" else "rows"
+            with flash_mode(fa, other):
+                compare(f"flash bf16 B{B} S{S} H{H} Hk{Hk} D{D} in {other} "
+                        "mode", fa.flash_attention_bshd(q, k, v),
+                        ref.attention_ref(qt, kt, vt).transpose(1, 2),
+                        "bfloat16")
+                ms, _ = device_ms(lambda: fa.flash_attention_bshd(q, k, v))
+            print(f"  {other} mode instead ({tiles} work tiles): {ms:.5f} "
+                  f"ms device, {t['ms'] / ms:.3f} of it in {plan.mode} mode")
+            other_s += time.perf_counter() - t0
+            others += 1
+    print(f"  the other mode at {others} shapes took {other_s:.1f} s")
     rows.append(dict(name="flash_attention", route="cuda",
                      source="src/repro_torch/kernels/csrc/flash_attention.cu",
                      replaces="src/repro/kernels/flash_attention.py:27",
@@ -3434,10 +3486,17 @@ def main() -> int:
                 m = re.search(r"(\d+) bytes spill stores", line)
                 if m:
                     spills[entry] = int(m.group(1))
-    for entry in NEW_FLASH_INSTANCES:
+    for entry, (D, split) in NEW_FLASH_INSTANCES.items():
         check(spills.get(entry) == 0, f"{entry} spills "
               f"{spills.get(entry)} bytes (or was not compiled)")
-    print(f"  no spills in {', '.join(NEW_FLASH_INSTANCES)}")
+        block_m, block_n, stages, smem = fa._wgmma_tile(D, split)
+        print(f"  {entry}: no spills; {block_m} query rows x {block_n} keys "
+              f"a tile, {stages} stages, {smem} bytes of dynamic shared "
+              "memory")
+    for entry in OTHER_FLASH_INSTANCES:
+        check(spills.get(entry) == 0, f"{entry} spills "
+              f"{spills.get(entry)} bytes (or was not compiled)")
+    print(f"  no spills in {', '.join(OTHER_FLASH_INSTANCES)}")
 
     print("=== 3. kernels against their plain versions on the card ===")
     rows = phase_kernels(torch, fa, rn, ref, hw)

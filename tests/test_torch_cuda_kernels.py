@@ -85,6 +85,55 @@ def test_flash_bshd_reads_strided_views(dev, dtype):
     _close(got, want, dtype)
 
 
+# The Hopper body's two modes at each of its head dims: causal S = T, and
+# full attention with T apart from S, over S and T in {1, 63, 65, 127, 129,
+# 1000, 2048}, at G 8 (jamba's 64 query and 8 KV heads, cut to 16 and 2).
+# ``_plan`` takes rows mode when the 128-row work tiles, B H ceil(S / 128),
+# number at least the card's SMs; a stand-in SM count forces either mode.
+WGMMA_SHAPES = [(S, S, True) for S in (1, 63, 65, 127, 129, 1000, 2048)] + [
+    (1, 63, False), (63, 1, False), (65, 1000, False), (129, 2048, False),
+    (2048, 127, False), (1000, 65, False), (127, 129, False)]
+MODE_SMS = {"rows": 1, "split": 10 ** 9}
+
+
+@pytest.mark.parametrize("S,T,causal", WGMMA_SHAPES)
+@pytest.mark.parametrize("mode", ["rows", "split"])
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_flash_wgmma_modes_match_plain(dev, monkeypatch, D, mode, S, T,
+                                       causal):
+    monkeypatch.setattr(fa, "_sm_count", lambda index: MODE_SMS[mode])
+    assert fa._plan(1, 16, 2, S, T, D, torch.bfloat16,
+                    MODE_SMS[mode]).mode == mode
+    g = torch.Generator(device=dev).manual_seed(S + 3 * T + D)
+    q = torch.randn(1, 16, S, D, device=dev, generator=g).to(torch.bfloat16)
+    k = torch.randn(1, 2, T, D, device=dev, generator=g).to(torch.bfloat16)
+    v = torch.randn(1, 2, T, D, device=dev, generator=g).to(torch.bfloat16)
+    n = fa.launches
+    got = fa.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.launches == n + 1
+    _close(got, ref.attention_ref(q, k, v, causal=causal), torch.bfloat16)
+
+
+@pytest.mark.parametrize("mode", ["rows", "split"])
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_flash_wgmma_reads_strided_views_of_one_qkv_buffer(dev, monkeypatch,
+                                                           D, mode):
+    """q, k and v as the model cuts them from one fused projection, [B, S,
+    H + 2 Hk, D]: the tensor maps step through the buffer's strides."""
+    monkeypatch.setattr(fa, "_sm_count", lambda index: MODE_SMS[mode])
+    H, Hk = 16, 2
+    g = torch.Generator(device=dev).manual_seed(D)
+    qkv = torch.randn(2, 1000, H + 2 * Hk, D, device=dev,
+                      generator=g).to(torch.bfloat16)
+    q, k, v = qkv[:, :, :H], qkv[:, :, H:H + Hk], qkv[:, :, H + Hk:]
+    got = fa.flash_attention_bshd(q, k, v, causal=True)
+    want = ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                             v.transpose(1, 2)).transpose(1, 2)
+    torch.cuda.synchronize()
+    _close(got, want, torch.bfloat16)
+
+
 @pytest.mark.parametrize("S", [256, 1024])
 def test_flash_bf16_error_is_the_rounding_of_weights_and_output(dev, S):
     """Against attention computed exactly (float64) from the same bf16
