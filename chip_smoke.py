@@ -10,8 +10,10 @@ It imports nothing of JAX or of the JAX package.  Phases:
 2. build the three CUDA sources from ``src/repro_torch/kernels/csrc`` with
    nvcc (flash attention; RMSNorm and gated RMSNorm; SSD intra-chunk), one
    process per source, started together, and print each kernel
-   instance's ptxas registers and spills, and the tile, stages and
-   dynamic shared memory of the Hopper flash body's six instances;
+   instance's ptxas registers and spills, the tile, stages and dynamic
+   shared memory of the Hopper flash body's six instances, and the
+   registers and shared memory of the Hopper SSD body's four (none of
+   either may spill);
 3. hold each of the four kernels against its plain PyTorch version on the
    card on the test sweeps and at the main paths' shapes (tolerance 2e-5 in
    float32 and 2e-2 in bfloat16 for attention and the norms, 2e-4 for the
@@ -20,8 +22,10 @@ It imports nothing of JAX or of the JAX package.  Phases:
    flash attention, flash at D = 16 and 256 with ragged S and T and a
    causal S = T = 1024 and 1280 at D = 256, bfloat16 norms with a float32
    scale, rows off 16-byte
-   alignment for both norms (their scalar bodies), and the SSD block on
-   the model's strided views (its tensor-core body), on B, C off 16-byte
+   alignment for both norms (their scalar bodies), and the SSD block (each
+   call's body checked through ``ssd.body``: the Hopper body at every main
+   path's shape, float32 y within 2e-4 and bfloat16 y within 2e-2, ragged
+   chunks among them) on the model's strided views, on B, C off 16-byte
    alignment (its CUDA-core body) and at full width on the draw of the
    CPU emulation of its arithmetic, against float64; check that the plain
    version's float32 cumsum sums left to right on the card, bit for bit,
@@ -43,8 +47,10 @@ It imports nothing of JAX or of the JAX package.  Phases:
    gemma3's rows of 1152, jamba's of 8192, llsc-100m's of 768 and
    mamba2-370m's of 1024, the gated norm at 4 and 256 rows of jamba's
    16384 and 4 and
-   320 rows of 2048, the SSD block at jamba's chunk of 256 heads and at
-   two chunks of mamba2-370m; the gated norm refuses a row of 16385;
+   320 rows of 2048, the SSD block at jamba's chunk of 256 heads, at two
+   chunks of mamba2-370m and at its train step's 8 (each at most 0.8x of
+   the mma.sync body's time, ``SSD_MMA_MS``); the gated norm refuses a row of
+   16385;
    flash at qwen1.5-4b's 20 heads of 128 and phi3-medium-14b's 40 query
    and 10 KV heads of 128 (S = 128 and 256, and qwen's train step), timed
    against SDPA with ``enable_gqa``; RMSNorm at
@@ -58,8 +64,10 @@ It imports nothing of JAX or of the JAX package.  Phases:
    internvl2-2b's of 2048 (4 and 384), against ``F.rms_norm``;
 4. serve llsc-100m at full width and depth in bfloat16 with
    ``flash_kernel`` on through ``ServeEngine``: 8 requests (prompts of 128
-   and 256 tokens, 32 new tokens each) through 4 slots; the kernels'
-   launch counters are set to 0 just before and must read exactly
+   and 256 tokens, 32 new tokens each) through 4 slots, after a warm-up of
+   4 requests of 8 new tokens (as every serve of phases 7, 19, 25 and 30);
+   the kernels' launch counters are set to 0 just before and must read
+   exactly
    flash = 12 x prefills, rmsnorm = 25 x (prefills + decode steps) and
    no gated norm or SSD launch;
 5. float32 logits of the card against the CPU over a prefill and 8 greedy
@@ -67,11 +75,11 @@ It imports nothing of JAX or of the JAX package.  Phases:
    tokens); then the card once more with every RMSNorm on its scalar body
    (inputs one element off 16-byte alignment), to show how much of the
    error is the vector body's order of summation;
-6. the serve of 4 under ``torch.profiler``, tracing the device alone:
-   device busy share (device time over the span from the trace's first
-   device activity to its last), the
-   device totals of the flash-attention and RMSNorm kernels, and the
-   largest kernels;
+6. the first 4 requests of 4 (one wave through the 4 slots, 32 new
+   tokens each), untraced and then under ``torch.profiler``, tracing the
+   device alone (``profile_wave``): device busy share (device time over the
+   span from the trace's first device activity to its last), the device
+   totals of the flash-attention and RMSNorm kernels, and the largest kernels;
 7. serve mamba2-370m at full width and depth in bfloat16: 8 requests
    (prompts of 128 and 320 tokens: one padded chunk of 256, and two; 32 new
    tokens each) through 4 slots, ``max_seq_len`` 384; the counters read
@@ -81,19 +89,20 @@ It imports nothing of JAX or of the JAX package.  Phases:
    and 8 greedy decode steps of mamba2-370m at full width (tolerance 1e-4,
    the same tokens; every cumsum accumulates in float32, as the
    reference's);
-9. the serve of 7 under ``torch.profiler``, as 6, with the totals of the
+9. the first 4 requests of 7 under ``torch.profiler``, as 6, with the
+   totals of the
    RMSNorm, gated RMSNorm and SSD kernels;
 10. the five ``kernels.ops`` entry points with inputs that require grad,
     in float32 and bfloat16: one launch each through its autograd
     Function, none in the backward, and the output and every gradient
     against the plain route's within phase 3's tolerances;
 11. train llsc-100m at full width and depth in bfloat16 (float32 masters)
-    through ``launch.train.main``: 22 AdamW steps of 8 x 256 tokens with
+    through ``launch.train.main``: 8 AdamW steps of 8 x 256 tokens with
     ``flash_kernel`` under the config's ``remat = "full"``, counters set to
     0 just before and reading exactly flash = 24 x steps and rmsnorm = 49 x
     steps (every block's kernels run again in the backward's recompute; the
     final norm once); finite losses, the registry's duty in (0, 1], the
-    median step time and tokens/s of steps 3-22, and peak memory;
+    median step time and tokens/s of steps 3-8, and peak memory;
 12. one train step under ``torch.profiler``: the device time of flash,
     RMSNorm, the GEMMs, the plain-version backwards of attention and
     RMSNorm, and the rest, and the busy share;
@@ -151,7 +160,8 @@ It imports nothing of JAX or of the JAX package.  Phases:
     on the card from a CUDA generator, the init timed) in bfloat16 as 4
     serves llsc-100m: flash 1 and SSD 4 a prefill, the gated norm 4 and
     RMSNorm 11 a prefill or decode step;
-26. the serve of 25 under ``torch.profiler``, as 21, and one decode
+26. the first 4 requests of 25 under ``torch.profiler``, as 6 with the
+    MoE's parts labelled as 21, and one decode
     step's device time against the HBM time of the weights it reads;
 27. float32 at full width, card against CPU within 1e-4: the model at 1
     layer over a 128-token prefill and 8 greedy decode steps, and the
@@ -171,7 +181,7 @@ It imports nothing of JAX or of the JAX package.  Phases:
     of 256 and 640 tokens, 32 new tokens each, ``max_seq_len`` 768, so
     the long requests decode past the window; flash = 4 x prefills (the
     global layers only), rmsnorm = 53 x (prefills + decode steps);
-31. the serve of 30 under ``torch.profiler``, as 6;
+31. the first 4 requests of 30 under ``torch.profiler``, as 6;
 32. train gemma3-1b at full width and depth as 11 (8 flash and 101
     RMSNorm launches a step: the 4 global layers lie in the stacked
     periods and are recomputed);
@@ -340,6 +350,21 @@ NEW_FLASH_INSTANCES = {
 OTHER_FLASH_INSTANCES = ("flash_fwd_mma_kernel<Li16>",
                          "flash_fwd_kernel<fLi16>", "flash_fwd_kernel<fLi256>")
 
+# The Hopper SSD body's instances (state 16 and 128, fp32 and bf16 y), by
+# their names in ptxas' log, with (state, y's dtype): none may spill.
+NEW_SSD_INSTANCES = {
+    f"ssd_intra_chunk_wgmma_kernel<Li{n}E{o}>": (n, name)
+    for n in (16, 128)
+    for o, name in (("f", "float32"), ("13__nv_bfloat16", "bfloat16"))}
+# The mma.sync SSD body at phase 3's three timed shapes (PERF.md, NVIDIA
+# H100 80GB HBM3 at 700 W): the Hopper body must take at most 0.8x.
+SSD_MMA_MS = {"serve": 0.02567, "jamba": 0.04806, "train": 0.07278}
+SSD_LIMIT = 0.8
+# AdamW steps of each full-width train run (phases 11, 14, 22, 32, 40, 42,
+# 49 and 51): 2 of warm-up, then the steps whose median is reported.  22
+# until the script neared its time limit.
+TRAIN_STEPS = 8
+
 # (H, Hk, B, S, D) of the causal bf16 flash timings in phase 3 (see
 # ``phase_kernels``); ``flash_call_cost.py`` times the same shapes.
 FLASH_BF16_SHAPES = ((8, 8, 4, 128, 64), (8, 8, 4, 256, 64),
@@ -360,6 +385,27 @@ FLASH_BF16_SHAPES = ((8, 8, 4, 128, 64), (8, 8, 4, 256, 64),
 def check(cond, msg):
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def zero_counters(counters):
+    """Every launch counter to 0, the SSD wrapper's counts by body too."""
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    ssd = counters["ssd_intra_chunk"][0]
+    ssd.launches_by_body = dict.fromkeys(ssd.BODIES, 0)
+
+
+def read_counters(counters):
+    """The launch counts since ``zero_counters``.  Every main path runs at
+    full width, where each SSD launch (mamba2-370m's and jamba's state 128
+    and 16, head dim 64) must take the Hopper body."""
+    counts = {name: getattr(mod, attr) for name, (mod, attr) in
+              counters.items()}
+    ssd = counters["ssd_intra_chunk"][0]
+    check(ssd.launches_by_body["wgmma"] == counts["ssd_intra_chunk"],
+          f"SSD launches by body {ssd.launches_by_body}: not every one took "
+          "the Hopper body")
+    return counts
 
 
 def nvidia_smi_line() -> str:
@@ -851,36 +897,45 @@ def phase_mamba_kernels(torch, rn, ssd, ref, hw):
     # 200 and 100: several, the last partial), p = 128, an odd number of
     # heads a group (3: one head a block), jamba's chunk of 256 (256 heads
     # of 64, state 16), then full width: the two 256-token chunks of a
-    # 320-token mamba2-370m prefill
-    ssd_cases = [(dtype, case) for dtype in (torch.float32, bf16)
-                 for case in ((1, 32, 4, 16, 1, 8), (2, 64, 8, 32, 2, 16),
-                              (1, 16, 2, 8, 2, 4), (3, 40, 4, 64, 1, 128),
-                              (1, 200, 4, 128, 1, 64),
-                              (2, 100, 6, 64, 2, 128),
-                              (1, 256, 256, 64, 1, 16))]
-    ssd_cases.append((bf16, (2, 256, 32, 64, 1, 128)))
-    for dtype, case in ssd_cases:
+    # 320-token mamba2-370m prefill; each with the (body, heads a block) it
+    # takes in bf16 (in fp32 every case takes the CUDA-core body)
+    ssd_sweep = (((1, 32, 4, 16, 1, 8), ("mma", 2)),
+                 ((2, 64, 8, 32, 2, 16), ("mma", 2)),
+                 ((1, 16, 2, 8, 2, 4), ("fp32", 0)),
+                 ((3, 40, 4, 64, 1, 128), ("wgmma", 1)),
+                 ((1, 200, 4, 128, 1, 64), ("mma", 2)),
+                 ((2, 100, 6, 64, 2, 128), ("wgmma", 1)),
+                 ((1, 256, 256, 64, 1, 16), ("wgmma", 1)))
+    ssd_cases = [(dtype, case, body if dtype == bf16 else ("fp32", 0))
+                 for dtype in (torch.float32, bf16)
+                 for case, body in ssd_sweep]
+    ssd_cases.append((bf16, (2, 256, 32, 64, 1, 128), ("wgmma", 1)))
+    for dtype, case, want in ssd_cases:
         dn = str(dtype).split(".")[1]
         x, dt_, A, B, C = ssd_inputs(*case, dtype)
-        got = ssd.ssd_intra_chunk(x, dt_, A, B, C, out_dtype=torch.float32)
-        errs[("ssd", dn, case)] = compare(
-            f"ssd_intra_chunk {dn} in, float32 out, N,l,h,p,g,n={case} "
-            f"({ssd_body(ssd)})", got,
-            ref.ssd_intra_chunk_ref(x, dt_, A, B, C, out_dtype=torch.float32),
-            "float32", tol=SSD_TOL)
-        # bf16 with p and n multiples of 8 takes the tensor-core body, with
-        # two heads a block where the heads of a group pair up, else one
-        _, _, h, p, g, n = case
-        mma = dtype == bf16 and p % 8 == 0 and n % 8 == 0
-        hb = (1 if (h // g) % 2 else 2) if mma else 0
-        check(ssd.heads_per_block == hb, f"ssd {dn} {case}: took "
-              f"{ssd_body(ssd)}, not {hb} heads a block")
+        plan = ssd.plan(*case, dtype)
+        check((plan.body, plan.heads_per_block) == want,
+              f"ssd {dn} {case}: planned {plan}, not {want}")
+        # fp32 y within SSD_TOL; a bf16 input's bf16 y within bf16's 2e-2
+        for out in {torch.float32, dtype}:
+            on = str(out).split(".")[1]
+            got = ssd.ssd_intra_chunk(x, dt_, A, B, C, out_dtype=out)
+            err = compare(
+                f"ssd_intra_chunk {dn} in, {on} out, N,l,h,p,g,n={case} "
+                f"({ssd_body(ssd)})", got,
+                ref.ssd_intra_chunk_ref(x, dt_, A, B, C, out_dtype=out), on,
+                tol=SSD_TOL if out == torch.float32 else None)
+            if out == torch.float32:
+                errs[("ssd", dn, case)] = err
+            check((ssd.body, ssd.heads_per_block) == want,
+                  f"ssd {dn} {case}: took {ssd_body(ssd)}, not {want}")
     ssd_numerics(torch, ssd, ref)
     cumsum_order(torch, ref)
     x, dt_, A, B, C = ssd_inputs(2, 256, 32, 64, 1, 128, bf16)
     compare("ssd_intra_chunk bfloat16 in and out, full width",
             ssd.ssd_intra_chunk(x, dt_, A, B, C),
             ref.ssd_intra_chunk_ref(x, dt_, A, B, C), "bfloat16")
+    check(ssd.body == "wgmma", f"full width took {ssd_body(ssd)}")
 
     rows = []
     # jamba's 256-token prefill and decode step (rows of 16384); then
@@ -913,13 +968,29 @@ def phase_mamba_kernels(torch, rn, ssd, ref, hw):
                      + l * h * (p + 2))        # x * dt, dt * A, cumsum
         return n_bytes, flops, *hw.bound_s(n_bytes, flops, bf16)
 
-    def ssd_timed(x, dt_, A, B, C, label):
+    def ssd_timed(x, dt_, A, B, C, label, shape, bound):
+        """Times the kernel and its plain version at a main path's shape;
+        the Hopper body must take it, in at most SSD_LIMIT of the mma.sync
+        body's time."""
         ssd.ssd_intra_chunk(x, dt_, A, B, C, out_dtype=torch.float32)
-        return timed(f"{label}, {ssd_body(ssd)} (no library call)", dict(
+        check(ssd.body == "wgmma", f"{label}: took {ssd_body(ssd)}")
+        t = timed(f"{label}, {ssd_body(ssd)} (no library call)", dict(
             ms=lambda: ssd.ssd_intra_chunk(x, dt_, A, B, C,
                                            out_dtype=torch.float32),
             plain_ms=lambda: ref.ssd_intra_chunk_ref(
                 x, dt_, A, B, C, out_dtype=torch.float32)))
+        old = SSD_MMA_MS[shape]
+        print(f"  {shape}: {t['ms'] / old:.3f}x the mma.sync body's {old} ms "
+              f"(target 0.5x, limit {SSD_LIMIT}x); "
+              f"{t['ms'] / (bound * 1e3):.2f}x the byte bound")
+        check(t["ms"] <= SSD_LIMIT * old, f"{label}: {t['ms']:.5f} ms, over "
+              f"{SSD_LIMIT} of the mma.sync body's {old} ms")
+        return t
+
+    def ssd_bf16_out(x, dt_, A, B, C, label):
+        compare(f"{label}, bfloat16 out", ssd.ssd_intra_chunk(x, dt_, A, B, C),
+                ref.ssd_intra_chunk_ref(x, dt_, A, B, C), "bfloat16")
+        check(ssd.body == "wgmma", f"{label}: took {ssd_body(ssd)}")
 
     # jamba's prefill chunk of 256 tokens (256 heads of 64, state 16), as
     # the model hands it over: x, B, C views of one conv output (row stride
@@ -932,16 +1003,19 @@ def phase_mamba_kernels(torch, rn, ssd, ref, hw):
           xbc[..., h * p:h * p + g * n].unflatten(-1, (g, n)),
           xbc[..., h * p + g * n:].unflatten(-1, (g, n)))
     got = ssd.ssd_intra_chunk(*jx, out_dtype=torch.float32)
-    check(ssd.heads_per_block == 2, "jamba's views missed the tensor-core "
-          "body")
+    check(ssd.body == "wgmma", f"jamba's views took {ssd_body(ssd)}, not "
+          "the Hopper body")
+    label = (f"ssd_intra_chunk bf16 in, N,l,h,p,g,n={case}, x/B/C views of "
+             f"one buffer (row stride {xbc.stride(1)})")
     errs[("ssd jamba views",)] = compare(
-        f"ssd_intra_chunk bf16 in, fp32 out, N,l,h,p,g,n={case}, x/B/C views "
-        f"of one buffer (row stride {xbc.stride(1)}) ({ssd_body(ssd)})", got,
+        f"{label}, fp32 out ({ssd_body(ssd)})", got,
         ref.ssd_intra_chunk_ref(*jx, out_dtype=torch.float32), "float32",
         tol=SSD_TOL)
+    ssd_bf16_out(*jx, label)
     n_bytes, flops, bound, by = ssd_bound(*case)
     ssd_timed(*jx, f"ssd_intra_chunk bf16 in, fp32 out, N{N} l{l} h{h} p{p} "
-              f"g{g} n{n} (jamba's prefill chunk, the model's views)")
+              f"g{g} n{n} (jamba's prefill chunk, the model's views)",
+              "jamba", bound)
     print(f"  bound {bound * 1e3:.6f} ms ({by}: {n_bytes} B, {flops} FLOP)")
     # a mamba2-370m train step: 8 sequences of one chunk of 256
     case = (8, 256, 32, 64, 1, 128)
@@ -950,14 +1024,16 @@ def phase_mamba_kernels(torch, rn, ssd, ref, hw):
             f"step)", ssd.ssd_intra_chunk(*xs8, out_dtype=torch.float32),
             ref.ssd_intra_chunk_ref(*xs8, out_dtype=torch.float32),
             "float32", tol=SSD_TOL)
+    check(ssd.body == "wgmma", f"the train step took {ssd_body(ssd)}")
+    ssd_bf16_out(*xs8, f"ssd_intra_chunk bf16 in, N,l,h,p,g,n={case}")
     n_bytes, flops, bound, by = ssd_bound(*case)
     ssd_timed(*xs8, "ssd_intra_chunk bf16 in, fp32 out, N8 l256 h32 p64 g1 "
-              "n128 (a train step)")
+              "n128 (a train step)", "train", bound)
     print(f"  bound {bound * 1e3:.6f} ms ({by}: {n_bytes} B, {flops} FLOP)")
     N, l, h, p, g, n = 2, 256, 32, 64, 1, 128
     n_bytes, flops, bound, by = ssd_bound(N, l, h, p, g, n)
     t = ssd_timed(x, dt_, A, B, C, f"ssd_intra_chunk bf16 in, fp32 out, N{N} "
-                  f"l{l} h{h} p{p} g{g} n{n}")
+                  f"l{l} h{h} p{p} g{g} n{n}", "serve", bound)
     print(f"  bound {bound * 1e3:.6f} ms ({by}: {n_bytes} B, {flops} FLOP)")
     # The serve's prompts (128, 320) are padded to whole chunks, which
     # copies x, B and C: the timing above is that contiguous layout.  A
@@ -970,12 +1046,13 @@ def phase_mamba_kernels(torch, rn, ssd, ref, hw):
     label = (f"ssd_intra_chunk bf16 in, fp32 out, N{N} l{l} h{h} p{p} g{g} "
              f"n{n}, x/B/C views of one buffer (row stride {xbc.stride(1)})")
     got = ssd.ssd_intra_chunk(xs, dt_, A, Bs, Cs, out_dtype=torch.float32)
-    check(ssd.heads_per_block > 0, "the model's views missed the "
-          "tensor-core body")
+    check(ssd.body == "wgmma", f"the model's views took {ssd_body(ssd)}, "
+          "not the Hopper body")
     compare(f"{label} ({ssd_body(ssd)})", got,
             ref.ssd_intra_chunk_ref(xs, dt_, A, Bs, Cs,
                                     out_dtype=torch.float32),
             "float32", tol=SSD_TOL)
+    ssd_bf16_out(xs, dt_, A, Bs, Cs, label.replace(", fp32 out", ""))
     timed(label, dict(ms=lambda: ssd.ssd_intra_chunk(
         xs, dt_, A, Bs, Cs, out_dtype=torch.float32)))
     # B and C one element off 16-byte alignment take the CUDA-core body
@@ -983,8 +1060,8 @@ def phase_mamba_kernels(torch, rn, ssd, ref, hw):
     Bo = xbc[..., h * p + 1:h * p + g * n + 1].unflatten(-1, (g, n))
     Co = xbc[..., h * p + g * n + 1:].unflatten(-1, (g, n))
     got = ssd.ssd_intra_chunk(xs, dt_, A, Bo, Co, out_dtype=torch.float32)
-    check(ssd.heads_per_block == 0, "unaligned B, C took the tensor-core "
-          "body")
+    check(ssd.body == "fp32", f"unaligned B, C took {ssd_body(ssd)}, not "
+          "the CUDA-core body")
     compare(f"ssd_intra_chunk bf16 in, fp32 out, full width, B/C at an odd "
             f"element offset ({ssd_body(ssd)})", got,
             ref.ssd_intra_chunk_ref(xs, dt_, A, Bo, Co,
@@ -1031,8 +1108,7 @@ def ssd_numerics(torch, ssd, ref):
     exact = (w @ x.double().transpose(1, 2)).transpose(1, 2)      # [N,l,h,p]
     dev = [t.cuda() for t in (x, dt, A, B, C)]
     kernel = ssd.ssd_intra_chunk(*dev, out_dtype=torch.float32).cpu()
-    check(ssd.heads_per_block == 2, "the emulation's draw missed the "
-          "tensor-core body")
+    check(ssd.body == "wgmma", "the emulation's draw missed the Hopper body")
     plain = {"card": ref.ssd_intra_chunk_ref(*dev, out_dtype=torch.float32)
              .cpu(),
              "CPU": ref.ssd_intra_chunk_ref(x, dt, A, B, C,
@@ -1077,8 +1153,9 @@ def cumsum_order(torch, ref):
 
 def ssd_body(ssd):
     """Which body of the SSD kernel the last launch took."""
-    hb = ssd.heads_per_block
-    return f"tensor cores, {hb} heads a block" if hb else "CUDA cores"
+    return {"wgmma": "the Hopper body (TMA, wgmma)",
+            "mma": f"mma.sync, {ssd.heads_per_block} heads a block",
+            "fp32": "CUDA cores"}[ssd.body]
 
 
 def make_requests(engine_mod, vocab, n, seed, lens, new=32):
@@ -1110,8 +1187,7 @@ def phase_serve(torch, cfg, params, engine, counters, perf, *, lens, max_seq,
         eng.submit(r)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for mod, attr in counters.values():
-        setattr(mod, attr, 0)
+    zero_counters(counters)
     with perf.perf_flags(perf.PerfFlags(flash_kernel=True)):
         if profile:
             from torch.profiler import ProfilerActivity, profile as prof_ctx
@@ -1131,8 +1207,7 @@ def phase_serve(torch, cfg, params, engine, counters, perf, *, lens, max_seq,
             return eng, stats, prof
         stats = eng.run()
     torch.cuda.synchronize()
-    counts = {name: getattr(mod, attr) for name, (mod, attr) in
-              counters.items()}
+    counts = read_counters(counters)
     return eng, stats, counts
 
 
@@ -1318,7 +1393,7 @@ KERNEL_NAMES = {"flash_attention": re.compile(r"flash_fwd"),
                 "rmsnorm": re.compile(r"(?<!\w)rmsnorm_(vec_)?kernel"),
                 "gated_rmsnorm": re.compile(r"gated_rmsnorm_(vec_)?kernel"),
                 "ssd_intra_chunk": re.compile(
-                    r"ssd_intra_chunk_(mma_)?kernel")}
+                    r"ssd_intra_chunk_(mma_|wgmma_)?kernel")}
 
 
 def kernels_under(evt):
@@ -1419,6 +1494,20 @@ def profile_first_wave(torch, cfg, params, engine, counters, perf, serve,
                                 new=PROFILE_NEW, **serve), untraced["wall_s"],
                    "the 4-request serve", kernels,
                    [label for _, labels in parts for label in labels])
+
+
+def profile_wave(torch, cfg, params, engine, counters, perf, serve,
+                 kernels, parts=()):
+    """Phases 6, 9, 26 and 31: the first 4 of a serve's 8 requests (one
+    wave through the 4 slots, 32 new tokens each), untraced, then under
+    torch.profiler (the device only, or with a MoE model's parts labelled),
+    reported as ``report_profile`` does.  Reading a trace takes some 0.3 s
+    a decode step, so the whole serve's trace took 11-31 s a phase."""
+    _, untraced, _ = phase_serve(torch, cfg, params, engine, counters, perf,
+                                 requests=4, **serve)
+    report_profile(*phase_serve(torch, cfg, params, engine, counters, perf,
+                                profile=True, requests=4, **serve),
+                   untraced["wall_s"], "the 4-request serve", kernels, parts)
 
 
 def report_profile(eng_p, stats_p, prof, serve_wall, untraced, kernels,
@@ -1672,13 +1761,14 @@ def phase_train(torch, np, counters, registry, perf, smi, arch, flags=(),
     ``launch.train.main`` trains ``arch`` at full width and depth
     (``layers`` of them where given: the launcher's config cut to that
     depth) in bfloat16 with float32 masters under the config's ``remat``
-    ("full"), 22 AdamW steps of 8 x 256 tokens (and the Trainer's frames
-    or patches for a model with a stub frontend), the counters set
-    to 0 just before.  Every loss is finite; each step launches exactly
-    ``step_launches``; the registry holds the job's duty in (0, 1], from
-    the model FLOPs of the active parameters (``count_params_analytic``).
-    Steps 3-22 give the median step time and tokens/s (the first 2 are
-    warm-up); the host-side init of the masters is timed apart.  Then one
+    ("full"), ``TRAIN_STEPS`` AdamW steps of 8 x 256 tokens (and the
+    Trainer's frames or patches for a model with a stub frontend), the
+    counters set to 0 just before.  Every loss is finite; each step
+    launches exactly ``step_launches``; the registry holds the job's duty
+    in (0, 1], from the model FLOPs of the active parameters
+    (``count_params_analytic``).  Steps 3 to ``TRAIN_STEPS`` give the
+    median step time and tokens/s (the first 2 are warm-up); the host-side
+    init of the masters is timed apart.  Then one
     step under the profiler.  Returns the launch counts; ``stats``, where
     given, gets the median step (``median_s``), the peak memory allocated
     (``peak_bytes``) and the job's registry entry (``published``)."""
@@ -1686,7 +1776,7 @@ def phase_train(torch, np, counters, registry, perf, smi, arch, flags=(),
     from repro_torch.models import model as model_lib
     from repro_torch.train import trainer as trainer_mod
 
-    steps, batch, seq = 22, 8, 256
+    steps, batch, seq = TRAIN_STEPS, 8, 256
     made = []
 
     class Recorded(trainer_mod.Trainer):
@@ -1713,14 +1803,12 @@ def phase_train(torch, np, counters, registry, perf, smi, arch, flags=(),
     try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        for mod, attr in counters.values():
-            setattr(mod, attr, 0)
+        zero_counters(counters)
         rc = launch_train.main([
             "--arch", arch, "--steps", str(steps), "--batch", str(batch),
             "--seq", str(seq), *flags])
         torch.cuda.synchronize()
-        counts = {name: getattr(mod, attr) for name, (mod, attr) in
-                  counters.items()}
+        counts = read_counters(counters)
     finally:
         launch_train.Trainer = trainer_mod.Trainer
         launch_train.get_config = get_config
@@ -1819,7 +1907,7 @@ def flat(tree, path=""):
 
 def grad_gaps(got, want):
     """{leaf: (max |reference gradient|, max |got - want|)} over flat dicts
-    of float32 CPU tensors."""
+    of float32 tensors on one device."""
     return {k: (float(w.abs().max()), float((got[k] - w).abs().max()))
             for k, w in want.items()}
 
@@ -1836,9 +1924,9 @@ def gap_share(peak, gap):
 def update_gaps(got, want, g_want, lrs):
     """Parameters after ``len(lrs)`` AdamW steps of two runs from the same
     masters, ``want`` the reference's, ``g_want`` its step-1 gradients
-    (flat dicts of float32 CPU tensors).  Returns the worst share of each of
-    two bounds over every leaf, and the share of elements held to the
-    first:
+    (flat dicts of float32 tensors on one device).  Returns the worst share
+    of each of two bounds over every leaf, and the share of elements held
+    to the first:
 
     - tight, where the reference's step-1 gradient is at least UPDATE_CLEAR
       of its leaf's largest: there Adam's update m / sqrt(v) follows the
@@ -1907,6 +1995,25 @@ def recorded_routes():
               f"{flips} chose other expert ids")
 
 
+@contextlib.contextmanager
+def recorded_grads(ts):
+    """Within the block, the gradients of every ``ts.loss_and_grads`` call
+    (the train step's, so that a check of a step's gradients needs no
+    forward and backward of its own) go to the list it yields."""
+    seen, real = [], ts.loss_and_grads
+
+    def recording(*args, **kwargs):
+        loss, grads = real(*args, **kwargs)
+        seen.append(grads)
+        return loss, grads
+
+    ts.loss_and_grads = recording
+    try:
+        yield seen
+    finally:
+        ts.loss_and_grads = real
+
+
 def train_card_vs_cpu(torch, perf, cfg, aux_weights=None, banded=False,
                       planted=False):
     """Phases 13, 16, 24, 28, 34, 35, 44, 45, 53 and 54: ``cfg`` in float32
@@ -1919,9 +2026,10 @@ def train_card_vs_cpu(torch, perf, cfg, aux_weights=None, banded=False,
     ``aux_weights``), with ``flash_kernel`` on and ``banded_local`` as
     ``banded`` says, and AdamW's moments in the config's
     ``opt_dtype``.  Losses within 1e-4 relative;
-    step-1 gradients within 5e-3 absolute (the reference's gradient
-    tolerance) and each leaf's within GRAD_RTOL of its largest; parameters
-    after 2 steps within ``update_gaps``' two bounds."""
+    step-1 gradients (those the first step computes, ``recorded_grads``)
+    within 5e-3 absolute (the reference's gradient tolerance) and each
+    leaf's within GRAD_RTOL of its largest; parameters after 2 steps within
+    ``update_gaps``' two bounds."""
     from repro_torch.train import optimizer as opt
     from repro_torch.train import train_step as ts
     from repro_torch.train.data import DataConfig, SyntheticLM
@@ -1946,19 +2054,21 @@ def train_card_vs_cpu(torch, perf, cfg, aux_weights=None, banded=False,
             t0 = time.perf_counter()
             params = _to(masters, dev)
             b = {k: v.to(dev) for k, v in batch.items()}
-            _, grads = ts.loss_and_grads(params, cfg, b,
-                                         aux_weights=aux_weights)
             state = ts.TrainState(params, opt.init_opt_state(params, ocfg))
             step_fn = ts.make_train_step(cfg, ocfg, aux_weights=aux_weights)
             losses, lrs = [], []
-            for _ in range(2):
-                state, met = step_fn(state, b)
-                losses.append(float(met["loss"]))
-                lrs.append(met["lr"])
+            with recorded_grads(ts) as seen:
+                for _ in range(2):
+                    state, met = step_fn(state, b)
+                    losses.append(float(met["loss"]))
+                    lrs.append(met["lr"])
+            grads = seen[0]
             check(all(t.dtype == moment for t in flat(state.opt.m).values()),
                   f"the moments are not {cfg.opt_dtype}")
-            result[dev] = (flat(_to(grads, "cpu")), losses, lrs,
-                           flat(_to(state.params, "cpu")))
+            # both sides compared on the card: the same exactly rounded
+            # fp32 arithmetic as on the host, in a fraction of its time
+            result[dev] = (flat(_to(grads, "cuda")), losses, lrs,
+                           flat(_to(state.params, "cuda")))
             print(f"  {dev}: gradients and 2 steps in "
                   f"{time.perf_counter() - t0:.1f} s")
     (g_cpu, l_cpu, lrs, p_cpu), (g_card, l_card, _, p_card) = \
@@ -2014,8 +2124,7 @@ def phase_remat(torch, perf, counters, smi):
     with perf.perf_flags(perf.PerfFlags(flash_kernel=True)):
         for remat in ("none", "full", "dots", "dots", "full", "none"):
             cfg = dataclasses.replace(base, remat=remat)
-            for mod, attr in counters.values():
-                setattr(mod, attr, 0)
+            zero_counters(counters)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             before = torch.cuda.memory_allocated() / 2 ** 20
@@ -2024,8 +2133,7 @@ def phase_remat(torch, perf, counters, smi):
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t0) * 1e3
             peak = torch.cuda.max_memory_allocated() / 2 ** 20
-            counts = {name: getattr(mod, attr) for name, (mod, attr) in
-                      counters.items()}
+            counts = read_counters(counters)
             check(counts == step_launches(cfg), f"remat {remat}: launches "
                   f"{counts} != {step_launches(cfg)}")
             if remat in runs:
@@ -2187,7 +2295,8 @@ def phase_granite_serve(torch, np, model_lib, engine, counters, perf,
     print(f"host-side init of {model_lib.count_params(cfg)} bf16 parameters "
           f"(router float32): {time.perf_counter() - t0:.1f} s")
     serve = dict(lens=(128, 256), max_seq=512)
-    phase_serve(torch, cfg, params, engine, counters, perf, **serve)  # warm-up
+    phase_serve(torch, cfg, params, engine, counters, perf, requests=4, new=8,
+                **serve)  # warm-up
     eng, stats, counts = phase_serve(torch, cfg, params, engine, counters,
                                      perf, **serve)
     expect = serve_launches(cfg, len(eng.prefill_s), stats["steps"])
@@ -2258,7 +2367,8 @@ def phase_jamba_serve(torch, np, model_lib, engine, counters, perf, hw,
           f"{n_bytes} bytes, {torch.cuda.memory_allocated() / 2 ** 20:.1f} "
           "MiB allocated")
     serve = dict(lens=(128, 256), max_seq=512)
-    phase_serve(torch, cfg, params, engine, counters, perf, **serve)  # warm-up
+    phase_serve(torch, cfg, params, engine, counters, perf, requests=4, new=8,
+                **serve)  # warm-up
     eng, stats, counts = phase_serve(torch, cfg, params, engine, counters,
                                      perf, **serve)
     expect = serve_launches(cfg, len(eng.prefill_s), stats["steps"])
@@ -2266,13 +2376,12 @@ def phase_jamba_serve(torch, np, model_lib, engine, counters, perf, hw,
     report_serve(torch, np, eng, stats, counts, expect, cfg, registry)
     check(eng._flops_per_token == 2.0 * active,
           "the engine's duty does not count the active parameters")
-    serve_wall = stats["wall_s"]
     del eng
 
-    print(f"=== 26. the serve of phase 25 under torch.profiler [{smi}] ===")
-    report_profile(*phase_serve(torch, cfg, params, engine, counters, perf,
-                                profile=True, **serve), serve_wall,
-                   "phase 25", tuple(KERNEL_NAMES), MOE_PARTS)
+    print(f"=== 26. the first 4 requests of phase 25 under torch.profiler "
+          f"[{smi}] ===")
+    profile_wave(torch, cfg, params, engine, counters, perf, serve,
+                 tuple(KERNEL_NAMES), MOE_PARTS)
     decode_vs_hbm(torch, model_lib, hw, cfg, params, smi, serve["max_seq"])
     return counts
 
@@ -2454,19 +2563,19 @@ def phase_gemma_serve(torch, np, model_lib, engine, counters, perf,
           f"layers) on the card from a CUDA generator: "
           f"{time.perf_counter() - t0:.1f} s")
     serve = dict(lens=(256, 640), max_seq=768)
-    phase_serve(torch, cfg, params, engine, counters, perf, **serve)  # warm-up
+    phase_serve(torch, cfg, params, engine, counters, perf, requests=4, new=8,
+                **serve)  # warm-up
     eng, stats, counts = phase_serve(torch, cfg, params, engine, counters,
                                      perf, **serve)
     expect = serve_launches(cfg, len(eng.prefill_s), stats["steps"])
     print(f"[{smi}] gemma3-1b, full width and depth:")
     report_serve(torch, np, eng, stats, counts, expect, cfg, registry)
-    serve_wall = stats["wall_s"]
     del eng
 
-    print(f"=== 31. the serve of phase 30 under torch.profiler [{smi}] ===")
-    report_profile(*phase_serve(torch, cfg, params, engine, counters, perf,
-                                profile=True, **serve), serve_wall,
-                   "phase 30", ("flash_attention", "rmsnorm"))
+    print(f"=== 31. the first 4 requests of phase 30 under torch.profiler "
+          f"[{smi}] ===")
+    profile_wave(torch, cfg, params, engine, counters, perf, serve,
+                 ("flash_attention", "rmsnorm"))
     return counts
 
 
@@ -2776,13 +2885,11 @@ def phase_model_serve(torch, np, model_lib, engine, counters, perf, smi, cfg,
         run()   # warm-up
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        for mod, attr in counters.values():
-            setattr(mod, attr, 0)
+        zero_counters(counters)
         t0 = time.perf_counter()
         pre, dec, out = run()
         wall = time.perf_counter() - t0
-        counts = {name: getattr(mod, attr) for name, (mod, attr) in
-                  counters.items()}
+        counts = read_counters(counters)
         expect = serve_launches(cfg, len(pre), len(dec))
         peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
         enc_ms = None
@@ -3473,7 +3580,7 @@ def main() -> int:
         libs = dict(zip(_build.SOURCES, pool.map(_build.build,
                                                  _build.SOURCES)))
     print(f"built {sorted(libs)} in {time.perf_counter() - t0:.2f} s")
-    spills = {}
+    spills, regs = {}, {}
     for name, path in sorted(libs.items()):
         log = path.with_suffix(".log")
         entry = name
@@ -3486,6 +3593,9 @@ def main() -> int:
                 m = re.search(r"(\d+) bytes spill stores", line)
                 if m:
                     spills[entry] = int(m.group(1))
+                m = re.search(r"Used (\d+) registers", line)
+                if m:
+                    regs[entry] = int(m.group(1))
     for entry, (D, split) in NEW_FLASH_INSTANCES.items():
         check(spills.get(entry) == 0, f"{entry} spills "
               f"{spills.get(entry)} bytes (or was not compiled)")
@@ -3497,6 +3607,13 @@ def main() -> int:
         check(spills.get(entry) == 0, f"{entry} spills "
               f"{spills.get(entry)} bytes (or was not compiled)")
     print(f"  no spills in {', '.join(OTHER_FLASH_INSTANCES)}")
+    for entry, (n, out) in NEW_SSD_INSTANCES.items():
+        check(spills.get(entry) == 0, f"{entry} spills "
+              f"{spills.get(entry)} bytes (or was not compiled)")
+        print(f"  {entry}: no spills; state {n}, {out} y; {regs.get(entry)} "
+              f"registers at launch (setmaxnreg 40 / 232), "
+              f"{ssd.plan(1, 256, 1, 64, 1, n).smem} bytes of dynamic shared "
+              "memory")
 
     print("=== 3. kernels against their plain versions on the card ===")
     rows = phase_kernels(torch, fa, rn, ref, hw)
@@ -3507,22 +3624,21 @@ def main() -> int:
     params = model_lib.init_params(cfg, torch.Generator().manual_seed(0),
                                    device="cuda")
     serve = dict(lens=(128, 256), max_seq=512)
-    phase_serve(torch, cfg, params, engine, counters, perf, **serve)  # warm-up
+    phase_serve(torch, cfg, params, engine, counters, perf, requests=4, new=8,
+                **serve)  # warm-up
     eng, stats, counts = phase_serve(torch, cfg, params, engine, counters,
                                      perf, **serve)
     expect = serve_launches(cfg, len(eng.prefill_s), stats["steps"])
     report_serve(torch, np, eng, stats, counts, expect, cfg, registry)
     serve_llsc = counts
-    llsc_wall = stats["wall_s"]
 
     print("=== 5. card vs CPU, llsc-100m full width, float32 ===")
     card_vs_cpu(torch, np, model_lib, perf, engine.TIME_AXIS_LEAVES, cfg, 128,
                 scalar_norm=True)
 
-    print("=== 6. the serve of phase 4 under torch.profiler ===")
-    report_profile(*phase_serve(torch, cfg, params, engine, counters, perf,
-                                profile=True, **serve), llsc_wall, "phase 4",
-                   ("flash_attention", "rmsnorm"))
+    print("=== 6. the first 4 requests of phase 4 under torch.profiler ===")
+    profile_wave(torch, cfg, params, engine, counters, perf, serve,
+                 ("flash_attention", "rmsnorm"))
     del params
 
     print("=== 7. serve mamba2-370m, full width and depth, bf16 ===")
@@ -3530,22 +3646,21 @@ def main() -> int:
     params = model_lib.init_params(cfg, torch.Generator().manual_seed(0),
                                    device="cuda")
     serve = dict(lens=(128, 320), max_seq=384)
-    phase_serve(torch, cfg, params, engine, counters, perf, **serve)  # warm-up
+    phase_serve(torch, cfg, params, engine, counters, perf, requests=4, new=8,
+                **serve)  # warm-up
     eng, stats, counts = phase_serve(torch, cfg, params, engine, counters,
                                      perf, **serve)
     # 49 norms a pass: no ln2, d_ff 0
     expect = serve_launches(cfg, len(eng.prefill_s), stats["steps"])
     report_serve(torch, np, eng, stats, counts, expect, cfg, registry)
     serve_mamba = counts
-    mamba_wall = stats["wall_s"]
 
     print("=== 8. card vs CPU, mamba2-370m full width, float32 ===")
     card_vs_cpu(torch, np, model_lib, perf, engine.TIME_AXIS_LEAVES, cfg, 320)
 
-    print("=== 9. the serve of phase 7 under torch.profiler ===")
-    report_profile(*phase_serve(torch, cfg, params, engine, counters, perf,
-                                profile=True, **serve), mamba_wall, "phase 7",
-                   ("rmsnorm", "gated_rmsnorm", "ssd_intra_chunk"))
+    print("=== 9. the first 4 requests of phase 7 under torch.profiler ===")
+    profile_wave(torch, cfg, params, engine, counters, perf, serve,
+                 ("rmsnorm", "gated_rmsnorm", "ssd_intra_chunk"))
 
     # the engine holds the weights too: release both, or mamba2-370m's
     # 703 MiB of bf16 weights stay allocated through the later phases
@@ -3638,9 +3753,10 @@ def main() -> int:
             ("--flags", "flash_kernel") if arch == "qwen1.5-4b" else (),
             phase=phase, layers=QPM_TRAIN_LAYERS)
         flash, norms = QPM_STEP[arch]
-        check(counts["flash_attention"] == 22 * flash
-              and counts["rmsnorm"] == 22 * norms,
-              f"{arch}: {counts} in 22 steps, not {flash} flash and {norms} "
+        check(counts["flash_attention"] == TRAIN_STEPS * flash
+              and counts["rmsnorm"] == TRAIN_STEPS * norms,
+              f"{arch}: {counts} in {TRAIN_STEPS} steps, not {flash} flash "
+              f"and {norms} "
               "RMSNorm a step")
         by_path[f"train {arch}, {QPM_TRAIN_LAYERS} layers"] = counts
     phase_qpm_checks(torch, np, model_lib, engine, perf)

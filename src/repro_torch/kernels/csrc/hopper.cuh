@@ -1,8 +1,9 @@
 // PTX building blocks of the Hopper (sm_90a) tensor-core pipeline: TMA
-// tile loads that complete on an mbarrier, the mbarrier operations of a
-// ring of stages, shared-memory matrix descriptors for 128-byte swizzled
-// tiles, register reallocation between warpgroups, and the bf16 wgmma
-// products with fp32 accumulation that flash_attention.cu uses.
+// tile loads that complete on an mbarrier and tile stores in bulk groups,
+// the mbarrier operations of a ring of stages, shared-memory matrix
+// descriptors for 128-byte and 32-byte swizzled tiles, register
+// reallocation between warpgroups, and the bf16 wgmma products with fp32
+// accumulation that flash_attention.cu and ssd.cu use.
 //
 // Layouts (PTX ISA, "Asynchronous Warpgroup Level Matrix Multiply").
 // A tile that TMA writes with CU_TENSOR_MAP_SWIZZLE_128B is rows of 128
@@ -91,6 +92,36 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst,
       : "memory");
 }
 
+// One box of shared memory at `src` into a 4-d tensor map, as a bulk
+// group of this thread; elements outside the tensor are not written.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n"
+      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Wait until this thread's bulk groups have read their shared memory
+// (READ) or are complete.
+template <bool READ>
+__device__ __forceinline__ void bulk_wait_all() {
+  if constexpr (READ)
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  else
+    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+// Make this thread's shared-memory writes visible to the async proxy (a
+// TMA store that reads them).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // Descriptor of a 128-byte swizzled operand tile at shared address `addr`
 // (see the top for LBO and SBO by major-ness).
 __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
@@ -98,6 +129,16 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>(lbo >> 4) << 16) |
          (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// Descriptor of a K-major operand tile with rows of 32 bytes (16 bf16),
+// as TMA writes it with CU_TENSOR_MAP_SWIZZLE_32B: the 16-byte chunk c of
+// row r stored at chunk c ^ ((r / 4) % 2) of its 256-byte group of 8 rows;
+// the tile starts 256-byte aligned.  One k-step (32 bytes) is the whole
+// row: SBO 256 (8-row groups), LBO unused.
+__device__ __forceinline__ uint64_t sw32_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(256 >> 4) << 32) | (3ull << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {

@@ -2,29 +2,93 @@
 (``csrc/ssd.cu``), the port of ``repro/kernels/ssd.py:27 _ssd_kernel``.
 
 Takes CUDA tensors only and raises on anything the kernel does not take;
-the CPU path lives in :mod:`repro_torch.kernels.ops`.  There is no
-backward: with grad enabled, inputs that require grad raise (``kernels.ops``
-is the differentiable route).  ``launches``
-counts the kernel launches made through this module; ``heads_per_block``
-is what the last launch took: the heads a block of the tensor-core body
-owned, or 0 for the CUDA-core body (float32, or bfloat16 rows off 16-byte
-alignment).
+the CPU path lives in :mod:`repro_torch.kernels.ops`.  The C entry point
+picks the body of each call by shape and alignment alone, one launch a
+call (``csrc/ssd_plan.h``):
+
+* bfloat16 x, B, C, 16-byte aligned, head dim 64, state 16 or 128, chunks
+  up to 256 (mamba2-370m's and jamba's, every main path): the Hopper body
+  ("wgmma": TMA into a ring of mbarrier-tracked stages fed by a producer
+  warpgroup, C.B and y += W' x on wgmma, one block an SM walking pairs of
+  query tiles);
+* other aligned bfloat16 whose shared memory fits the card: the mma.sync
+  body ("mma", the reduced configs' head dim 16);
+* anything else (float32, rows off 16-byte alignment): the CUDA-core body
+  ("fp32").
+
+There is no fallback: the entry point launches the body it picked or
+fails, and a failed build, a tensor map that cannot be encoded or a
+refused launch raises.  There is no backward: with grad enabled, inputs
+that require grad raise (``kernels.ops`` is the differentiable route).
+``launches`` counts the kernel launches made through this module and
+``launches_by_body`` the same launches by body; ``body`` names the body
+the last launch took, as the entry point reports it, and
+``heads_per_block`` the heads a block of a tensor-core body owned (1 for
+the Hopper body's work items), or 0 for the CUDA-core body.  ``plan``
+asks the same rule what a shape would take.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
 
 from repro_torch.kernels import _build, _guard
 
+# The bodies, by their numbers in csrc/ssd_plan.h.
+BODIES = ("fp32", "mma", "wgmma")
+
 launches = 0
+launches_by_body = dict.fromkeys(BODIES, 0)
+body = None
 heads_per_block = 0
 
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEAD_DIM = 128
 MAX_STATE = 256
+
+_PlanInts = ctypes.c_int * 6
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """One launch as the C side plans it: the body, its dynamic shared
+    memory in bytes, its grid (x, y, z) and the heads a block owns."""
+    body: str
+    smem: int
+    grid: tuple
+    heads_per_block: int
+
+    @classmethod
+    def of(cls, ints):
+        return cls(BODIES[ints[0]], ints[1], tuple(ints[2:5]), ints[5])
+
+
+def plan(N, l, h, p, g, n, dtype=torch.bfloat16, aligned=True, sms=None,
+         smem_optin=None):
+    """The ``Plan`` that ``ssd_intra_chunk`` launches for x [N,l,h,p] and
+    B, C [N,l,g,n] of ``dtype`` (``aligned``: 16-byte aligned base
+    pointers and strides), on a card of ``sms`` SMs and
+    ``smem_optin`` bytes of opt-in shared memory a block (default: the
+    current CUDA device's): the C side's rule, ``ssd_intra_chunk_plan``."""
+    if sms is None:
+        sms, smem_optin = _device_limits(torch.cuda.current_device())
+    ints = _PlanInts()
+    if _plan_entry()(int(dtype == torch.bfloat16), int(aligned), N, l, h, p,
+                     g, n, sms, smem_optin, ints):
+        raise ValueError(f"ssd_intra_chunk: no plan for N,l,h,p,g,n = "
+                         f"{(N, l, h, p, g, n)}")
+    return Plan.of(list(ints))
+
+
+@functools.lru_cache(maxsize=None)
+def _device_limits(index):
+    """(streaming multiprocessors, opt-in shared memory a block) of CUDA
+    device ``index``."""
+    props = torch.cuda.get_device_properties(index)
+    return props.multi_processor_count, props.shared_memory_per_block_optin
 
 
 @functools.lru_cache(maxsize=None)
@@ -37,12 +101,24 @@ def _kernel():
     return fn
 
 
+def _bind_plan(lib):
+    """``ssd_intra_chunk_plan`` of a loaded library, typed."""
+    fn = lib.ssd_intra_chunk_plan
+    fn.argtypes = [ctypes.c_int] * 10 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_entry():
+    return _bind_plan(_build.load("ssd"))
+
+
 def ssd_intra_chunk(x, dt, A, B, C, *, out_dtype=None):
     """Diagonal SSD block of each chunk.  x [N,l,h,p]; dt [N,l,h] and A [h]
     contiguous float32; B, C [N,l,g,n] in x's dtype; x, B, C may be strided
     views with a contiguous last dimension.  Returns y [N,l,h,p], contiguous,
     in ``out_dtype`` (float32 or x's dtype; default x's dtype)."""
-    global launches, heads_per_block
     _guard.refuse_autograd("ssd_intra_chunk", x, dt, A, B, C)
     for name, t in (("x", x), ("dt", dt), ("A", A), ("B", B), ("C", C)):
         if not t.is_cuda:
@@ -83,18 +159,35 @@ def ssd_intra_chunk(x, dt, A, B, C, *, out_dtype=None):
     out = torch.empty((N, l, h, p), dtype=out_dtype, device=x.device)
     if out.numel() == 0:
         return out
-    hb = ctypes.c_int(0)
+    return _launch(x, dt, A, B, C, out)
+
+
+def _launch(x, dt, A, B, C, out):
+    """One launch: the checked inputs, ``out`` allocated."""
+    global launches, body, heads_per_block
+    N, l, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    ints = _PlanInts()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _kernel()(x.data_ptr(), dt.data_ptr(), A.data_ptr(),
                         B.data_ptr(), C.data_ptr(), out.data_ptr(),
                         int(x.dtype == torch.bfloat16),
-                        int(out_dtype == torch.bfloat16), N, l, h, p, g, n,
+                        int(out.dtype == torch.bfloat16), N, l, h, p, g, n,
                         *x.stride()[:3], *B.stride()[:3], *C.stride()[:3],
-                        ctypes.byref(hb), stream)
+                        ints, stream)
+    if err < 0:
+        raise RuntimeError("ssd_intra_chunk: the TMA tensor maps could not "
+                           f"be encoded (error {err}: "
+                           + ("libcuda has no cuTensorMapEncodeTiled"
+                              if err == -1 else "a map was refused") + ")")
     if err != 0:
         raise RuntimeError(f"ssd_intra_chunk kernel launch failed: CUDA error "
-                           f"{err}")
+                           f"{err} (N,l,h,p,g,n = {(N, l, h, p, g, n)}, plan "
+                           f"{list(ints)})")
+    done = Plan.of(list(ints))
     launches += 1
-    heads_per_block = hb.value
+    launches_by_body[done.body] += 1
+    body = done.body
+    heads_per_block = done.heads_per_block
     return out

@@ -393,30 +393,62 @@ def _ssd_inputs(dev, N, l, h, p, g, n, dtype, seed=0):
     return x, dt, A, B, C
 
 
-# The sweep of tests/test_kernels.py, ragged chunks (40: one key tile of
-# the tensor-core body; 200 and 100: several, the last partial), p = 128,
-# three heads a group (one head a block), then mamba2-370m's two chunks of
-# a 320-token prefill (the second padded) and jamba's chunk of 256 (256
-# heads of 64, state 16).
+# (body, heads a block) that each case of the sweep below takes in bf16,
+# contiguous: head dim 64 with state 16 or 128 and chunks up to 256 the
+# Hopper body; other bf16 with p and n multiples of 8 the mma.sync body, two
+# heads a block where the heads of a group pair up, else one; the rest the
+# CUDA-core body.  In fp32 every case takes the CUDA-core body.
+SSD_BF16_BODY = {
+    (1, 32, 4, 16, 1, 8): ("mma", 2), (2, 64, 8, 32, 2, 16): ("mma", 2),
+    (1, 16, 2, 8, 2, 4): ("fp32", 0), (3, 40, 4, 64, 1, 128): ("wgmma", 1),
+    (1, 200, 4, 128, 1, 64): ("mma", 2), (2, 100, 6, 64, 2, 128): ("wgmma", 1),
+    (2, 256, 32, 64, 1, 128): ("wgmma", 1),
+    (1, 256, 256, 64, 1, 16): ("wgmma", 1),
+    (8, 256, 32, 64, 1, 128): ("wgmma", 1), (2, 1, 4, 64, 1, 128): ("wgmma", 1),
+    (1, 192, 6, 64, 3, 16): ("wgmma", 1), (3, 100, 4, 64, 2, 16): ("wgmma", 1),
+    (1, 256, 4, 64, 1, 64): ("mma", 2)}
+
+
+# The sweep of tests/test_kernels.py, ragged chunks (40: one key tile;
+# 200 and 100: several, the last partial), p = 128, three heads a group,
+# then mamba2-370m's two chunks of a 320-token prefill (the second padded)
+# and jamba's chunk of 256 (256 heads of 64, state 16); then the Hopper
+# body's edges: a train step's 8 chunks, one query tile alone (1 row), a
+# middle tile (192: a pair and a single), state 16 ragged and in groups.
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("N,l,h,p,g,n", [
     (1, 32, 4, 16, 1, 8), (2, 64, 8, 32, 2, 16), (1, 16, 2, 8, 2, 4),
     (3, 40, 4, 64, 1, 128), (1, 200, 4, 128, 1, 64), (2, 100, 6, 64, 2, 128),
-    (2, 256, 32, 64, 1, 128), (1, 256, 256, 64, 1, 16)])
+    (2, 256, 32, 64, 1, 128), (1, 256, 256, 64, 1, 16),
+    (8, 256, 32, 64, 1, 128), (2, 1, 4, 64, 1, 128), (1, 192, 6, 64, 3, 16),
+    (3, 100, 4, 64, 2, 16), (1, 256, 4, 64, 1, 64)])
 def test_ssd_kernel_matches_plain(dev, N, l, h, p, g, n, dtype):
     x, dt, A, B, C = _ssd_inputs(dev, N, l, h, p, g, n, dtype, seed=l + h)
     for out_dtype in {torch.float32, dtype}:
         got = ssd.ssd_intra_chunk(x, dt, A, B, C, out_dtype=out_dtype)
-        # bf16 with p and n multiples of 8 takes the tensor-core body, with
-        # two heads a block where the heads of a group pair up, else one
-        mma = dtype == torch.bfloat16 and p % 8 == 0 and n % 8 == 0
-        assert ssd.heads_per_block == ((1 if h // g % 2 else 2) if mma else 0)
+        want_body = (SSD_BF16_BODY[N, l, h, p, g, n]
+                     if dtype == torch.bfloat16 else ("fp32", 0))
+        plan = ssd.plan(N, l, h, p, g, n, dtype)
+        assert (ssd.body, ssd.heads_per_block) == want_body == (
+            plan.body, plan.heads_per_block)
         want = ref.ssd_intra_chunk_ref(x, dt, A, B, C, out_dtype=out_dtype)
         torch.cuda.synchronize()
         assert got.dtype == out_dtype
         tol = 2e-4 if out_dtype == torch.float32 else 2e-2
         torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                    atol=tol)
+
+
+@pytest.mark.parametrize("N,h,n", [(2, 32, 128), (1, 256, 16)])
+def test_ssd_hopper_body_repeats_bit_for_bit(dev, N, h, n):
+    """The Hopper body adds its consumers' partial sums in a fixed order,
+    with no atomics: two calls give the same bits."""
+    x, dt, A, B, C = _ssd_inputs(dev, N, 256, h, 64, 1, n, torch.bfloat16,
+                                 seed=h)
+    a = ssd.ssd_intra_chunk(x, dt, A, B, C, out_dtype=torch.float32)
+    b = ssd.ssd_intra_chunk(x, dt, A, B, C, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert ssd.body == "wgmma" and torch.equal(a, b)
 
 
 @pytest.mark.parametrize("shape,dim", [((2, 2, 256, 1, 32), 2),
@@ -455,14 +487,17 @@ def test_ssd_kernel_reads_strided_views_and_selects_the_mask(dev):
     torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
 
 
-@pytest.mark.parametrize("off", [0, 1])
-def test_ssd_bf16_reads_the_models_views(dev, off):
+@pytest.mark.parametrize("h,n,off", [(32, 128, 0), (32, 128, 1),
+                                     (256, 16, 0), (256, 16, 1)])
+@pytest.mark.parametrize("out_dtype", DTYPES)
+def test_ssd_bf16_reads_the_models_views(dev, h, n, off, out_dtype):
     """x, B, C as the model hands them over: views of one conv output with
-    a row stride of 2304 elements and B, C at 2048 and 2176, which take the
-    tensor-core body; then B and C one element further on (``off`` 1),
-    off 16-byte alignment, which take the CUDA-core body."""
-    N, l, h, p, g, n = 2, 256, 32, 64, 1, 128
-    gen = torch.Generator(device=dev).manual_seed(7 + off)
+    a row stride of h p + 2 n elements (mamba2-370m's 2304, B and C at 2048
+    and 2176; jamba's 16416), which take the Hopper body; then B and C one
+    element further on (``off`` 1), off 16-byte alignment, which take the
+    CUDA-core body."""
+    N, l, p, g = 2 if h == 32 else 1, 256, 64, 1
+    gen = torch.Generator(device=dev).manual_seed(7 + off + h)
     xbc = torch.randn(N, l, h * p + 2 * g * n + off, device=dev,
                       generator=gen).to(torch.bfloat16)
     x = xbc[..., :h * p].unflatten(-1, (h, p))
@@ -471,11 +506,12 @@ def test_ssd_bf16_reads_the_models_views(dev, off):
     dt = torch.nn.functional.softplus(torch.randn(N, l, h, device=dev,
                                                   generator=gen))
     A = -torch.exp(torch.randn(h, device=dev, generator=gen) * 0.3)
-    got = ssd.ssd_intra_chunk(x, dt, A, B, C, out_dtype=torch.float32)
-    assert (ssd.heads_per_block > 0) == (off == 0)
-    want = ref.ssd_intra_chunk_ref(x, dt, A, B, C, out_dtype=torch.float32)
+    got = ssd.ssd_intra_chunk(x, dt, A, B, C, out_dtype=out_dtype)
+    assert ssd.body == ("fp32" if off else "wgmma")
+    want = ref.ssd_intra_chunk_ref(x, dt, A, B, C, out_dtype=out_dtype)
     torch.cuda.synchronize()
-    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+    tol = 2e-4 if out_dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
 def test_mamba_kernels_route_and_count(dev, monkeypatch):
