@@ -22,23 +22,31 @@ normalized latent ``ckv`` and the shared rope key ``krope``.
 """
 from __future__ import annotations
 
+import math
+from typing import NamedTuple
+
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models.layers import apply_rope_bshd, rmsnorm
 from repro_torch.models.perf_flags import current as _perf
-from repro_torch.models.sharding_hints import reshape
+from repro_torch.models.sharding_hints import Relayout, hint_mesh, reshape
 
 F32 = torch.float32
 NEG_INF = -1e30
 
 
 def _attend_block(qc, k, v, q_pos, kv_pos, *, causal, window, kv_valid_len,
-                  softcap, scale):
+                  softcap, scale, reduce=None):
     """qc [B,C,Hk,G,D]; k,v [B,T,Hk,D]; q_pos [C] or [B,C]; kv_pos [T]
     (negative for the banded path's front padding, always masked);
-    kv_valid_len None or [B].  Returns [B,C,Hk,G,D]."""
+    kv_valid_len None or [B].  Returns [B,C,Hk,G,D].  ``reduce(t, op)``,
+    where given, all-reduces ``t`` ("max" or "sum") over the devices that
+    share out the keys: the softmax then runs over all of them, and the
+    devices' parts of the output are summed.  That path spells the softmax
+    out; without ``reduce`` it stays ``torch.softmax``, so that the
+    one-card path keeps its numerics (a test ties the two)."""
     scores = torch.einsum("bchgd,bthd->bhgct", qc.to(F32), k.to(F32)) * scale
     if softcap is not None:
         scores = softcap * torch.tanh(scores / softcap)
@@ -53,8 +61,12 @@ def _attend_block(qc, k, v, q_pos, kv_pos, *, causal, window, kv_valid_len,
         mask = mask & (kv_pos[None, None, :] < kv_valid_len[:, None, None])
     scores = torch.where(mask[:, None, None], scores,
                          torch.full_like(scores, NEG_INF))
-    weights = torch.softmax(scores, dim=-1).to(v.dtype)
-    return torch.einsum("bhgct,bthd->bchgd", weights, v)
+    if reduce is None:
+        weights = torch.softmax(scores, dim=-1).to(v.dtype)
+        return torch.einsum("bhgct,bthd->bchgd", weights, v)
+    p = torch.exp(scores - reduce(scores.amax(-1, keepdim=True), "max"))
+    weights = (p / reduce(p.sum(-1, keepdim=True), "sum")).to(v.dtype)
+    return reduce(torch.einsum("bhgct,bthd->bchgd", weights, v), "sum")
 
 
 def chunked_attention(q, k, v, *, causal=True, window=None, q_offset=0,
@@ -72,7 +84,24 @@ def chunked_attention(q, k, v, *, causal=True, window=None, q_offset=0,
     chunk, each chunk reads only its band of keys, the reference's ``Wb =
     chunk + ceil(window / chunk) * chunk`` of them from keys padded in front
     by ``Wb - chunk`` (and behind to whole chunks); exact for any window.
+    A ``DTensor`` q in a sharding-hint context with a mesh runs on each
+    device's share (:func:`_attention_on_shards`).
     """
+    kw = dict(causal=causal, window=window, softcap=softcap, chunk=chunk,
+              band=(banded and window is not None and kv_valid_len is None
+                    and q.shape[1] > chunk))
+    shares = _shard_layout(q, k)
+    if shares is not None:
+        return _attention_on_shards(q, k, v, q_offset, kv_valid_len, shares,
+                                    **kw)
+    return _chunked(q, k, v, q_offset, kv_valid_len, **kw)
+
+
+def _chunked(q, k, v, q_offset, kv_valid_len, *, causal, window, softcap,
+             chunk, band, kv_start=0, reduce=None):
+    """``chunked_attention`` with the band chosen (``band``; it follows an
+    int ``q_offset``), over keys at positions ``kv_start`` on; ``reduce``
+    as ``_attend_block``'s."""
     B, Sq, H, D = q.shape
     Hk, Skv = k.shape[2], k.shape[1]
     G = H // Hk
@@ -84,27 +113,202 @@ def chunked_attention(q, k, v, *, causal=True, window=None, q_offset=0,
     if kv_valid_len is not None:
         kvl = torch.as_tensor(kv_valid_len, device=dev).reshape(-1)
 
-    kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
-    if banded and window is not None and kvl is None and Sq > chunk:
+    kw = dict(causal=causal, window=window, softcap=softcap, scale=scale,
+              reduce=reduce)
+    if band:
         wb = chunk + -(-window // chunk) * chunk
-        pad = (0, 0, 0, 0, wb - chunk, (-Sq) % chunk)
+        end = q_offset + -(-Sq // chunk) * chunk
+        pad = (0, 0, 0, 0, wb - chunk, max(0, end - Skv))
         k_pad, v_pad = F.pad(k, pad), F.pad(v, pad)
     else:
-        wb, kv_pos = None, torch.arange(Skv, device=dev)
+        kv_pos = torch.arange(kv_start, kv_start + Skv, device=dev)
     outs = []
     for start in range(0, Sq, chunk):
         qc = qg[:, start:start + chunk]
         ar = torch.arange(start, start + qc.shape[1], device=dev)
         q_pos = q_off[:, None] + ar if q_off.dim() == 1 else q_off + ar
         kc, vc = k, v
-        if wb is not None:
-            # band element j holds key position start + j - (wb - chunk)
-            kc, vc = k_pad[:, start:start + wb], v_pad[:, start:start + wb]
-            kv_pos = torch.arange(start - (wb - chunk), start + chunk,
-                                  device=dev)
+        if band:
+            # band element j holds key position s + j - (wb - chunk)
+            s = q_offset + start
+            kc, vc = k_pad[:, s:s + wb], v_pad[:, s:s + wb]
+            kv_pos = torch.arange(s - (wb - chunk), s + chunk, device=dev)
         outs.append(_attend_block(qc, kc, vc, q_pos, kv_pos,
                                   kv_valid_len=kvl, **kw))
     return reshape(torch.cat(outs, dim=1), B, Sq, H, v.shape[-1])
+
+
+class _Shares(NamedTuple):
+    """How :func:`_attention_on_shards` shares one attention call out over
+    a mesh (:func:`_shard_layout` decides it): placements, one per mesh
+    dim, of each ``local_map`` input and gradient, and what each device
+    does to its share."""
+    mesh: object
+    tp: int             # the tensor axis's mesh dim
+    q: tuple            # q's, in, and the output's
+    q_grad: tuple       # q's gradient out of the map
+    kv: tuple           # K's and V's, in
+    kv_grad: tuple      # their gradients out of the map
+    kv_back: tuple      # their gradients as handed back to the projections
+    per_row: tuple      # a [B] ``q_offset``'s or ``kv_valid_len``'s
+    pick_kv: bool       # pick q's heads' KV heads out of the whole K and V
+    rows: bool          # take a contiguous 1 / n of the query rows
+    key_dims: tuple     # the mesh dims that share out the keys
+
+
+def _shard_layout(q, k):
+    """The :class:`_Shares` of an attention call where ``q`` is a
+    ``DTensor`` in a sharding-hint context with a mesh.  The batch shards
+    over the FSDP axes where it divides them; a decode cache's time axis
+    keeps the dims that shard it (context-parallel decode).  The tensor
+    axis, of n devices, splits the first of:
+
+    * a decode cache's time axis, where it shards it (the
+      ``decode_cache_seq_shard`` PerfFlag): each device its keys, the
+      softmax's max and sums all-reduced;
+    * the batch, where n divides a data device's rows and q's heads do not
+      lie split over it already: no K or V moves, and the step's other
+      products stay data parallel;
+    * the query heads, where n divides them: the KV heads too where n
+      divides them, else K and V whole (the small side), each device
+      picking its heads' KV heads;
+    * the query rows, where it does not and there is more than one: the
+      reference's rule for such heads, "context-parallel ... instead"
+      (``repro/launch/sharding.py:163-166``).
+
+    The gradients of K and V where a device reads part of them, and of q
+    where the keys are shared out, are partial sums; K's and V's go back
+    to the projections scattered over the sequence, since DTensor would
+    hand them on whole and run the projections' backward whole on every
+    device of the tensor axis.  None for any other tensor, outside such a
+    context, and for a decode step whose heads n does not divide and whose
+    keys it does not split: its one row cannot be split, and DTensor runs
+    it whole on every device of the tensor axis."""
+    mesh = hint_mesh(q)
+    if mesh is None:
+        return None
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    from repro_torch.launch.mesh import fsdp_axes, tp_axis
+    from repro_torch.launch.sharding import _axes_or_none
+
+    names = list(mesh.mesh_dim_names)
+    tp = names.index(tp_axis(mesh))
+    b_dims = [names.index(a) for a in
+              _axes_or_none(mesh, q.shape[0], fsdp_axes(mesh)) or ()]
+    Sq = q.shape[1]
+    t_dims = [i for i, p in enumerate(getattr(k, "placements", ()))
+              if Sq == 1 and isinstance(p, Shard) and p.dim == 1
+              and i not in b_dims]
+    n = mesh.size(tp)
+    kv_tp = None
+    if tp in t_dims:
+        q_tp = Replicate()
+    elif q.placements[tp] != Shard(2) and q.shape[0] % (n * math.prod(
+            mesh.size(i) for i in b_dims)) == 0:
+        q_tp = kv_tp = Shard(0)
+    elif q.shape[2] % n == 0:
+        q_tp = Shard(2)
+        kv_tp = Shard(2) if k.shape[2] % n == 0 else None
+    elif Sq > 1:
+        q_tp = Shard(1)
+    else:
+        return None
+
+    def lay(tp_p, time_p):
+        return tuple(Shard(0) if i in b_dims else time_p if i in t_dims
+                     else tp_p if i == tp else Replicate()
+                     for i in range(mesh.ndim))
+
+    return _Shares(
+        mesh, tp, q=lay(q_tp, Replicate()), q_grad=lay(q_tp, Partial()),
+        kv=lay(kv_tp or Replicate(), Shard(1)),
+        kv_grad=lay(kv_tp or Partial(), Shard(1)),
+        kv_back=lay(kv_tp or Shard(1), Shard(1)),
+        per_row=lay(q_tp if q_tp == Shard(0) else Replicate(), Replicate()),
+        pick_kv=q_tp == Shard(2) and kv_tp is None, rows=q_tp == Shard(1),
+        key_dims=tuple(t_dims))
+
+
+def _attention_on_shards(q, k, v, q_offset, kv_valid_len, shares, **kw):
+    """``chunked_attention`` on each device's share (``local_map``), as
+    ``shares`` (a :class:`_Shares`) lays it out, where DTensor would take
+    q's [B,S,Hk,G,D] reshape whole wherever the tensor axis does not
+    divide Hk, and run every head on every device of it.  Query rows split
+    over n devices are padded to whole shares and cut off after.  Returns
+    [B,Sq,H,Dv], laid out as q."""
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor import DTensor, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    s = shares
+    mesh, coord = s.mesh, s.mesh.get_coordinate()
+    n, r = mesh.size(s.tp), coord[s.tp]
+    Sq, G = q.shape[1], q.shape[2] // k.shape[2]
+    if s.rows and Sq % n:
+        q = F.pad(q, (0, 0, 0, 0, 0, n - Sq % n))
+    whole = (Replicate(),) * mesh.ndim
+
+    def dtensor(t):
+        return t if isinstance(t, DTensor) or not isinstance(
+            t, torch.Tensor) else DTensor.from_local(t, mesh, whole,
+                                                     run_check=False)
+
+    q = Relayout.apply(q, mesh, s.q, s.q)
+    k, v = (Relayout.apply(dtensor(t), mesh, s.kv, s.kv_back)
+            for t in (k, v))
+    args = [q, k, v, dtensor(q_offset), dtensor(kv_valid_len)]
+    places = [s.q, s.kv, s.kv] + [
+        None if t is None or isinstance(t, int) else s.per_row if t.dim()
+        else whole for t in args[3:]]
+
+    def reduce(t, op):
+        for i in s.key_dims:
+            t = funcol.all_reduce(t, op, (mesh, i))
+        return funcol.wait_tensor(t)
+
+    def attend(q, k, v, q_offset, kv_valid_len):
+        if s.pick_kv:
+            m = q.shape[2]
+            g = math.gcd(m, G)      # a run of g query heads reads one
+            heads = torch.arange(r * m, (r + 1) * m, g, device=k.device) // G
+            k, v = k.index_select(2, heads), v.index_select(2, heads)
+        if s.rows:
+            q_offset = q_offset + r * q.shape[1]
+        shard = 0
+        for i in s.key_dims:
+            shard = shard * mesh.size(i) + coord[i]
+        return _chunked(q, k, v, q_offset, kv_valid_len,
+                        kv_start=shard * k.shape[1],
+                        reduce=reduce if s.key_dims else None, **kw)
+
+    out = local_map(attend, out_placements=(s.q,),
+                    in_placements=tuple(places),
+                    in_grad_placements=(s.q_grad, s.kv_grad, s.kv_grad,
+                                        *places[3:]),
+                    device_mesh=mesh, redistribute_inputs=True)(*args)
+    return out[:, :Sq] if out.shape[1] != Sq else out
+
+
+def merge_heads(out):
+    """The attention's output [B,S,H,Dv] as [B,S,H*Dv], the output
+    projection's input.  On a mesh its batch shards over the FSDP axes and
+    H*Dv over the tensor axis (where they divide), in the forward and in
+    the backward, as a tensor-parallel product takes them: from rows split
+    over the tensor axis, DTensor would run the product's backward whole
+    on every device of it."""
+    B, S = out.shape[:2]
+    out = reshape(out, B, S, -1)
+    mesh = hint_mesh(out)
+    if mesh is None:
+        return out
+    from repro_torch.launch.mesh import fsdp_axes, tp_axis
+    from repro_torch.launch.sharding import _axes_or_none, to_placements
+
+    p = to_placements((_axes_or_none(mesh, B, fsdp_axes(mesh)), None,
+                       _axes_or_none(mesh, out.shape[2], tp_axis(mesh))),
+                      mesh)
+    return Relayout.apply(out, mesh, p, p)
 
 
 def gqa_project_qkv(params, x, n_heads, n_kv_heads, d_head):
@@ -159,7 +363,7 @@ def gqa_attention(params, x, cfg, *, local: bool, positions, chunk=None,
             q, k, v, causal=True, window=cfg.attn_window if local else None,
             softcap=cfg.attn_logit_softcap, chunk=chunk or cfg.attn_chunk,
             banded=banded)
-    return reshape(out, B, S, -1) @ params["wo"], (k, v)
+    return merge_heads(out) @ params["wo"], (k, v)
 
 
 def _cache_write(cache, new, cache_len):
@@ -252,8 +456,7 @@ def gqa_decode(params, x, cfg, cache_k, cache_v, cache_len, *,
                             window=cfg.attn_window if local else None,
                             q_offset=cache_len, kv_valid_len=cache_len + 1,
                             softcap=cfg.attn_logit_softcap)
-    B = x.shape[0]
-    return reshape(out, B, 1, -1) @ params["wo"], cache_k, cache_v
+    return merge_heads(out) @ params["wo"], cache_k, cache_v
 
 
 # --------------------------------------------------------------------------
@@ -269,7 +472,7 @@ def cross_attention(params, x, enc_k, enc_v, cfg):
     q = reshape(x @ params["wq"], B, S, cfg.n_heads, cfg.d_head)
     out = chunked_attention(q, enc_k, enc_v, causal=False,
                             chunk=cfg.attn_chunk)
-    return reshape(out, B, S, -1) @ params["wo"]
+    return merge_heads(out) @ params["wo"]
 
 
 def cross_kv(params, enc_out, n_kv_heads, d_head):
@@ -319,7 +522,7 @@ def mla_attention(params, x, cfg, *, positions):
     k = torch.cat([k_nope, k_rope.expand(
         *k_nope.shape[:-1], spec.qk_rope_head_dim)], dim=-1)
     out = chunked_attention(q, k, v, causal=True, chunk=cfg.attn_chunk)
-    return reshape(out, B, S, -1) @ params["wo"], (ckv, k_rope[:, :, 0])
+    return merge_heads(out) @ params["wo"], (ckv, k_rope[:, :, 0])
 
 
 def mla_decode(params, x, cfg, cache_ckv, cache_krope, cache_len):

@@ -29,6 +29,17 @@ def current_hints():
     return getattr(_state, "hints", None)
 
 
+def hint_mesh(x):
+    """The mesh of the innermost :func:`hint_context` where ``x`` is a
+    ``DTensor`` and the context has one; else None."""
+    state = current_hints()
+    if state is None or state[0] is None:
+        return None
+    from torch.distributed.tensor import DTensor
+
+    return state[0] if isinstance(x, DTensor) else None
+
+
 @contextlib.contextmanager
 def hint_context(hints: dict, mesh=None):
     """hints: name -> spec; with ``mesh`` (a ``DeviceMesh``), hints bind
@@ -57,22 +68,22 @@ def shard_hint(x, name: str):
         return x
     from repro_torch.launch.sharding import to_placements
 
-    spec = tuple(hints[name])[: x.ndim]
-    return _Hint.apply(x, mesh, to_placements(spec, mesh))
+    placements = to_placements(tuple(hints[name])[: x.ndim], mesh)
+    return Relayout.apply(x, mesh, placements, placements)
 
 
-class _Hint(torch.autograd.Function):
+class Relayout(torch.autograd.Function):
     """Redistribute a ``DTensor`` to ``placements``, and its gradient to
-    the same placements."""
+    ``grad_placements``."""
 
     @staticmethod
-    def forward(ctx, x, mesh, placements):
-        ctx.mesh, ctx.placements = mesh, placements
+    def forward(ctx, x, mesh, placements, grad_placements):
+        ctx.mesh, ctx.grad_placements = mesh, grad_placements
         return x.redistribute(mesh, placements)
 
     @staticmethod
     def backward(ctx, g):
-        return g.redistribute(ctx.mesh, ctx.placements), None, None
+        return g.redistribute(ctx.mesh, ctx.grad_placements), None, None, None
 
 
 

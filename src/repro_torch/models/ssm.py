@@ -234,19 +234,14 @@ def _head_layout(xs, G: int):
     axis: (mesh, placements of a [b, s, h, ...] tensor with the batch over
     the FSDP axes where it divides and the heads over the tensor axis,
     placements of B and C [b, s, g, n] and of A [h]).  Else None."""
-    from repro_torch.models.sharding_hints import current_hints
+    from repro_torch.models.sharding_hints import hint_mesh
 
-    state = current_hints()
-    if G != 1 or state is None or state[0] is None:
-        return None
-    from torch.distributed.tensor import DTensor
-
-    if not isinstance(xs, DTensor):
+    mesh = hint_mesh(xs) if G == 1 else None
+    if mesh is None:
         return None
     from repro_torch.launch.mesh import fsdp_axes, tp_axis
     from repro_torch.launch.sharding import _axes_or_none, to_placements
 
-    mesh = state[0]
     tp = _axes_or_none(mesh, xs.shape[2], tp_axis(mesh))
     if tp is None:
         return None

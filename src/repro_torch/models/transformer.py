@@ -429,8 +429,8 @@ def encode(params, cfg, enc_embeds):
                                            d_head)
         o = attn_mod.chunked_attention(q, k, v, causal=False,
                                        chunk=cfg.attn_chunk)
-        x = shard_hint(x + reshape(o, x.shape[0], x.shape[1], -1)
-                       @ bp["mixer"]["wo"], "activation")
+        x = shard_hint(x + attn_mod.merge_heads(o) @ bp["mixer"]["wo"],
+                       "activation")
         x = shard_hint(x + mlp(bp["mlp"], rmsnorm(bp["ln2"], x, cfg.norm_eps),
                                "gelu"), "activation")
     return rmsnorm(params["enc_norm"], x, cfg.norm_eps)
@@ -575,11 +575,13 @@ def _chunk_loss(w, tied, hc, lc):
     sharding hint.  The gold logits are gathered from the rows of the
     logits flattened to [B*C, V]: the same values, and a lookup that a
     vocab-sharded DTensor (the dry-run's) takes as a masked partial
-    reduce, which it cannot do for a 3-d gather."""
+    reduce, which it cannot do for a 3-d gather.  The reduce then meets
+    the [B*C, 1] gather as it came: DTensor keeps its mask at that shape
+    through a reshape, and a rank with data would fail to apply it."""
     logits = shard_hint(_head_logits(w, tied, hc), "logits")
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits.flatten(0, 1), 1,
-                        lc.clamp(min=0).reshape(-1, 1)).reshape(lc.shape)
+    lse = torch.logsumexp(logits, dim=-1).reshape(-1, 1)
+    lc = lc.reshape(-1, 1)
+    gold = torch.gather(logits.flatten(0, 1), 1, lc.clamp(min=0))
     valid = lc >= 0
     return torch.where(valid, lse - gold, 0.0).sum(), valid.sum()
 
